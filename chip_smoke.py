@@ -5,28 +5,46 @@
 
 Phases, any failure exits non-zero before the result lines:
   1. the card's name and power limit (nvidia-smi);
-  2. the build of the CUDA kernels from csrc/ (nvcc, sm_90a), timed;
-  3. each kernel (K1 gen_compact, K2 compact_rows, K3 merge_sorted_rows)
-     against its plain-torch twin on the card, on the inputs the stage-2
-     path gives it for synthetic (24, 2, 10, 260, 346) voxels at two
-     densities; outputs must be identical; median CUDA-event times of
-     kernel and twin at the dense setting;
-  4. the center-mode CLI (`cli.main`) on a 33-frame 260x346 clip with the
-     full-width model on seeded random weights: stage-1 ms/window, stage-2
-     ms/chunk, events, frames/s of the median of N_CLI warm runs; launch
-     counters reset just before the first of them must all have moved, and
-     the npz must hold EVENT_DTYPE records inside the frame, time-sorted;
-  5. stage 1 on the card against the CPU: the full-width model on one
+  2. the build of the CUDA kernels from csrc/ (one nvcc per source, all
+     started together, sm_90a), timed;
+  3. each kernel against its plain-torch twin on the card, on the inputs
+     the stage-2 paths give it for synthetic (24, 2, 10, 260, 346) voxels
+     at two densities: K1 gen_compact ('slope' and 'none'), K4 gen_pack
+     ('slope' and 'none'), K2 compact_rows (the fused route's calls, the
+     chain compaction at grid width P*H*W of the gen_pack route, and every
+     call of the bidirectional EventStream route, its one-row side list
+     included), K3 merge_sorted_rows (the fused route's calls and the
+     per-frame merge of the EventStream route), and K5 append_rows (the
+     EventStream flatten). Outputs must be identical. At the dense
+     setting: median CUDA-event times of kernel and twin, and each call's
+     bound (the bytes it needs, see bound_ms, at the HBM rate);
+  4. the CLI (`cli.main`), full-width model on seeded random weights, each
+     path counted (launch counters reset just before it and read just
+     after; every kernel of the path must have moved): center mode on a
+     33-frame 260x346 clip (median of N_CLI warm runs), the same with
+     --streaming (the batch run's event total), and -t pano on a 33-frame
+     260x600 clip (2 strips, the last right-aligned and trimmed to 254 px;
+     the 10-bit x field), batch and --streaming. Every npz must hold
+     EVENT_DTYPE records inside the frame, time-sorted;
+  5. each stage-2 mode (strategies slope, none and random, pooling avg and
+     weighted, bidirectional relocation, use_gen_compact=False), counted,
+     on a 4-frame 260x346 chunk: the card against the CPU plain path with
+     the same draws, byte-identical decoded events, events > 0; then the
+     mode's stage-2 ms/chunk on the card at 24 frames;
+  6. stage 1 on the card against the CPU: the full-width model on one
      16-frame 64x96 window, finite, within STAGE1_REL_TOL of the CPU
      output relative to its largest value;
-  6. stage 2 alone on the dense synthetic voxels: the kernel path on the
+  7. stage 2 alone on the dense synthetic voxels: the kernel path on the
      card against the plain path on the CPU with the same draws,
      byte-identical decoded events, and events > 0.
-The line before the last is a JSON object of per-kernel results; the last
-is {"ok": true, "device": {...}}.
+The line before the last is a JSON object of per-kernel results (its
+`launches` is the count of the kernel's own path, KERNEL_PATH, and
+`launches_by_path` every counted path's count); the last is
+{"ok": true, "device": {...}}.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -35,10 +53,55 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-OUT = os.path.join(ROOT, "smoke_out")      # the clip and the CLI outputs
+OUT = os.path.join(ROOT, "smoke_out")      # the clips and the CLI outputs
 N_TIMED = 15
 N_CLI = 3
 STAGE1_REL_TOL = 1e-4
+HBM_BYTES_PER_S = 3.35e12                  # H100 SXM device memory
+FPS, F, H, W = 30, 24, 260, 346            # the stage-2 chunk of the main path
+PANO_W = 600
+DEVICE = "cuda"
+
+# kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "gen_compact": ("v2ce_toolbox_tpu_torch/csrc/gen_compact.cu",
+                    "v2ce_toolbox_tpu/ops/gen_pallas.py:315"),
+    "compact_rows": ("v2ce_toolbox_tpu_torch/csrc/compact_rows.cu",
+                     "v2ce_toolbox_tpu/ops/compact_pallas.py:226"),
+    "merge_sorted_rows": ("v2ce_toolbox_tpu_torch/csrc/merge_rows.cu",
+                          "v2ce_toolbox_tpu/ops/compact_pallas.py:492"),
+    "gen_pack": ("v2ce_toolbox_tpu_torch/csrc/gen_pack.cu",
+                 "v2ce_toolbox_tpu/ops/gen_pallas.py:79"),
+    "append_rows": ("v2ce_toolbox_tpu_torch/csrc/merge_rows.cu",
+                    "v2ce_toolbox_tpu/ops/compact_pallas.py:361"),
+}
+# the phase-3 case whose time stands in the kernels line
+TIMED_CASE = {"gen_compact": "gen_compact[slope]", "compact_rows": "compact_rows",
+              "merge_sorted_rows": "merge_sorted_rows", "gen_pack": "gen_pack[slope]",
+              "append_rows": "append_rows"}
+CENTER_PATH = ("gen_compact", "compact_rows", "merge_sorted_rows")
+# kernel -> the counted path whose count stands as its `launches` in the
+# kernels line: the center CLI run, or the mode that reaches the kernel
+KERNEL_PATH = {"gen_compact": "center CLI", "compact_rows": "center CLI",
+               "merge_sorted_rows": "center CLI", "gen_pack": "mode gen_pack",
+               "append_rows": "mode bidirectional"}
+# stage-2 mode -> (SamplerConfig overrides, its CLI flags or None where
+# v2ce.py has no flag for it, the kernels its path launches)
+MODES = {
+    "slope": ({}, [], CENTER_PATH),
+    "none": (dict(additional_events_strategy="none"), ["--stage2_strategy", "none"],
+             CENTER_PATH),
+    "random": (dict(additional_events_strategy="random"), ["--stage2_strategy", "random"],
+               ("compact_rows", "merge_sorted_rows")),
+    "avg": (dict(pooling_type="avg"), ["--stage2_pooling", "avg"],
+            ("compact_rows", "merge_sorted_rows")),
+    "weighted": (dict(pooling_type="weighted"), ["--stage2_pooling", "weighted"],
+                 ("compact_rows", "merge_sorted_rows")),
+    "bidirectional": (dict(bidirectional=True), None,
+                      ("compact_rows", "merge_sorted_rows", "append_rows")),
+    "gen_pack": (dict(use_gen_compact=False), None,
+                 ("gen_pack", "compact_rows", "merge_sorted_rows")),
+}
 
 
 def log(*a):
@@ -78,10 +141,43 @@ def max_abs_err(a, b):
     assert len(fa) == len(fb)
     err = 0
     for x, y in zip(fa, fb):
+        if x is None or y is None:               # kx of the 'none' strategy
+            assert x is None and y is None
+            continue
         assert x.shape == y.shape and x.dtype == y.dtype, (x.shape, y.shape)
         if x.numel():
             err = max(err, int((x.long() - y.long()).abs().max()))
     return err
+
+
+def nbytes(x):
+    """Bytes of the tensors in x (nested lists, tuples and dicts)."""
+    if hasattr(x, "element_size"):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(nbytes(y) for y in x)
+    if isinstance(x, dict):
+        return sum(nbytes(y) for y in x.values())
+    return 0
+
+
+def bound_ms(label, args, kwargs, out):
+    """Least time of a call at the card's memory rate (its integer and f32
+    work is far below the compute bound): the bytes the function needs.
+    The generation kernels read every voxel and write their outputs once.
+    The row kernels write their outputs once and read a payload word only
+    where its key is kept. K2 reads every key, since a row's count of valid
+    keys decides where each lands; K3 and K5 take prefix-packed rows, whose
+    lengths a search finds, so they need only the kept keys."""
+    moved = nbytes(out)
+    if label.startswith(("gen_compact", "gen_pack")):
+        return (moved + nbytes(args) + nbytes(kwargs)) / HBM_BYTES_PER_S * 1e3
+    keys = args[0]
+    payloads = args[1] if len(args) > 1 else kwargs.get("payloads", ())
+    n_kept = int(out[2].sum())
+    moved += nbytes(keys) if label.startswith("compact_rows") else n_kept * keys.element_size()
+    moved += sum(n_kept * p.element_size() for p in payloads)
+    return moved / HBM_BYTES_PER_S * 1e3
 
 
 def cuda_ms(fn, torch):
@@ -106,19 +202,267 @@ def time_pair(kernel, plain, torch):
     return statistics.median(tk), statistics.median(tp)
 
 
+class Counted:
+    """Runs a path with every launch counter reset just before it and read
+    just after; the kernels of the path must all have moved. Keeps each
+    path's own counts."""
+
+    def __init__(self, torch, ops):
+        self.torch, self.ops = torch, ops
+        self.by_path = {}
+
+    def __call__(self, path, kernels, fn, how=""):
+        self.torch.cuda.synchronize()
+        self.ops.reset_launches()
+        out = fn()
+        self.torch.cuda.synchronize()
+        counts = self.ops.launch_counts()
+        log(f"[launches] {path}{f' ({how})' if how else ''}: {counts}")
+        missing = [k for k in kernels if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"{path} never launched {missing}")
+        self.by_path[path] = counts
+        return out
+
+
+def kernels_phase(torch, np, dev):
+    """Phase 3: every kernel against its twin on the stage-2 paths' calls.
+    Returns ({case: {ms, plain_ms, bound_ms}}, {kernel: max_abs_err},
+    (dense voxels, their fused-route events, their draw, offsets))."""
+    from v2ce_toolbox_tpu_torch.config import SamplerConfig
+    from v2ce_toolbox_tpu_torch.ops import compact, gen, ldati
+    from v2ce_toolbox_tpu_torch.pipeline import driver
+
+    scfg = SamplerConfig()
+    offsets = torch.from_numpy((np.arange(F) / FPS * 1e6).astype(np.int32)).to(dev)
+    kw1 = dict(fps=FPS, mepv=scfg.max_events_per_voxel, vox_bits=ldati.vox_bits_of(2, H, W),
+               cap_bin=scfg.cap_bin)
+    kw4 = {k: v for k, v in kw1.items() if k != "cap_bin"}
+    results, errs, dense = {}, {name: 0 for name in KERNELS}, None
+    for density, scale in [(0.05, 1.5), (0.3, 5.0)]:
+        g = torch.Generator(device=dev).manual_seed(1234)
+        v = ((torch.rand((F, 2, 10, H, W), generator=g, device=dev) < density)
+             * torch.rand((F, 2, 10, H, W), generator=g, device=dev) * scale).contiguous()
+        draw = ldati.make_draw(0, 0, dev)
+        calls = {"compact_rows": [], "merge_sorted_rows": [], "append_rows": [],
+                 "compact_rows[stream]": [], "merge_sorted_rows[stream]": []}
+        # the fused slope route of the center CLI: K1, K2, K3
+        with record_calls([ldati, driver], "compact_rows", calls["compact_rows"]), \
+                record_calls([driver], "merge_sorted_rows", calls["merge_sorted_rows"]):
+            events = driver._fetch_chunk_events_fused(v, draw, offsets, F, scfg, FPS,
+                                                      width=W)
+        # the gen_pack route: K4, then the chain compaction at grid width
+        grid = []
+        with record_calls([ldati], "compact_rows", grid):
+            ldati.sample_rows(v, draw, dataclasses.replace(scfg, use_gen_compact=False))
+        calls["compact_rows[grid]"] = [c for c in grid if c[0][0].shape[1] == 2 * H * W]
+        # the EventStream route (bidirectional): the grid path's K2 calls and
+        # the per-frame K3 merge in sample_events, then K5 on the per-frame
+        # buffers and the one-row side-list K2 in the flatten
+        with record_calls([ldati, driver], "compact_rows", calls["compact_rows[stream]"]), \
+                record_calls([ldati], "merge_sorted_rows", calls["merge_sorted_rows[stream]"]), \
+                record_calls([driver], "append_rows", calls["append_rows"]):
+            stream = ldati.sample_events(v, draw,
+                                         dataclasses.replace(scfg, bidirectional=True))
+            driver._fetch_chunk_events(stream, offsets, F, FPS, width=W)
+        torch.cuda.synchronize()
+        cases = [
+            ("gen_compact[slope]", gen.gen_compact, gen.gen_compact_torch, [((v,), kw1)]),
+            ("gen_compact[none]", gen.gen_compact, gen.gen_compact_torch,
+             [((v,), dict(kw1, strategy="none"))]),
+            ("gen_pack[slope]", gen.gen_pack, gen.gen_pack_torch, [((v,), kw4)]),
+            ("gen_pack[none]", gen.gen_pack, gen.gen_pack_torch,
+             [((v,), dict(kw4, strategy="none"))]),
+            ("compact_rows", compact.compact_rows, compact.compact_rows_torch,
+             calls["compact_rows"]),
+            ("compact_rows[grid]", compact.compact_rows, compact.compact_rows_torch,
+             calls["compact_rows[grid]"]),
+            ("compact_rows[stream]", compact.compact_rows, compact.compact_rows_torch,
+             calls["compact_rows[stream]"]),
+            ("merge_sorted_rows", compact.merge_sorted_rows, compact.merge_sorted_rows_torch,
+             calls["merge_sorted_rows"]),
+            ("merge_sorted_rows[stream]", compact.merge_sorted_rows,
+             compact.merge_sorted_rows_torch, calls["merge_sorted_rows[stream]"]),
+            ("append_rows", compact.append_rows, compact.append_rows_torch,
+             calls["append_rows"]),
+        ]
+        case_errs = {}
+        for label, kernel, plain, cl in cases:
+            if not cl:
+                raise AssertionError(f"the stage-2 paths made no {label} call")
+            case_errs[label] = max(max_abs_err(kernel(*a, **k), plain(*a, **k))
+                                   for a, k in cl)
+            name = label.split("[")[0]
+            errs[name] = max(errs[name], case_errs[label])
+        shapes = {label: [(tuple(a[0].shape), k) for a, k in calls[label]] for label in calls}
+        log(f"[kernels] density {density} x{scale}: events {len(events)}, "
+            f"max_abs_err {case_errs}, calls {shapes}")
+        for label, e in case_errs.items():
+            if e != 0:
+                raise AssertionError(f"{label} differs from its plain twin: {e}")
+        if density != 0.3:
+            continue
+        dense = (v, events, draw, offsets)
+        for label, kernel, plain, cl in cases:
+            tk = tp = tb = 0.0
+            for a, k in cl:
+                x, y = time_pair(lambda: kernel(*a, **k), lambda: plain(*a, **k), torch)
+                b = bound_ms(label, a, k, kernel(*a, **k))
+                log(f"[time] {label} {tuple(a[0].shape)} {k}: kernel {x:.4f} ms, "
+                    f"plain {y:.4f} ms, bound {b:.4f} ms")
+                tk, tp, tb = tk + x, tp + y, tb + b
+            results[label] = dict(ms=tk, plain_ms=tp, bound_ms=tb)
+            log(f"[time] {label} per 24-frame chunk: kernel {tk:.4f} ms, plain {tp:.4f} ms, "
+                f"bound {tb:.4f} ms")
+    return results, errs, dense
+
+
+def make_clip(path, n, h, w):
+    import cv2
+
+    from tools.make_test_video import make_frames
+
+    video = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 30, (w, h))
+    for fr in make_frames(n, h, w):
+        video.write(cv2.cvtColor(fr, cv2.COLOR_GRAY2BGR))
+    video.release()
+
+
+def check_npz(result, np, w, what, monotone=True):
+    """The npz of a CLI run: EVENT_DTYPE records inside the 260 x w frame of
+    the 32 voxel frames, time-sorted, and as many as the run reports.
+    'random' (not monotone) draws raw U[0, 1) s offsets past each bin
+    start, sorted per bin only."""
+    from v2ce_toolbox_tpu_torch.events import EVENT_DTYPE
+
+    ev = np.load(result["event_stream_path"])["event_stream"]
+    if ev.dtype != EVENT_DTYPE:
+        raise AssertionError(f"{what}: npz dtype {ev.dtype} != {EVENT_DTYPE}")
+    t_end = 32 / FPS * 1e6 + (0 if monotone else 1e6 + 1e6 / FPS / 9 + 2)
+    if not (len(ev) == result["num_events"] > 0
+            and ev["x"].min() >= 0 and ev["x"].max() < w
+            and ev["y"].min() >= 0 and ev["y"].max() < H
+            and (not monotone or np.all(np.diff(ev["timestamp"]) >= 0))
+            and ev["timestamp"].min() >= 0 and ev["timestamp"].max() < t_end):
+        raise AssertionError(f"{what}: events outside the {H}x{w} frame, unsorted or "
+                             "missing")
+    return ev
+
+
+def cli_line(result):
+    t = result["timings"]
+    return (f"stage-1 {t['stage1_s'] / t['windows'] * 1e3:.2f} ms/window "
+            f"({t['windows']} windows), stage-2 {t['stage2_s'] / t['chunks'] * 1e3:.2f} "
+            f"ms/chunk ({t['chunks']} chunks), events {result['num_events']}, "
+            f"{result['num_frames'] / result['wall_time_s']:.2f} frames/s "
+            f"({result['num_frames']} frames in {result['wall_time_s']:.3f} s)")
+
+
+def cli_phase(torch, np, counted, smi):
+    """Phase 4: center, center --streaming, pano and pano --streaming."""
+    from v2ce_toolbox_tpu_torch import cli
+
+    os.makedirs(OUT, exist_ok=True)
+    clip = os.path.join(OUT, "clip.mp4")
+    make_clip(clip, 33, H, W)
+    common = ["-o", OUT, "-m", os.path.join(OUT, "absent.pt"), "--device", DEVICE,
+              "--seed", "0", "--height", str(H), "--width", str(W), "-l", "warning"]
+    argv = ["-i", clip, *common]
+    cli.main(argv)                                   # warm-up (cuDNN, allocator)
+    result = counted("center CLI", CENTER_PATH, lambda: cli.main(argv))
+    check_npz(result, np, W, "center")
+    # the host shares its cores: report the run with the median wall time
+    runs = [result] + [cli.main(argv) for _ in range(N_CLI - 1)]
+    if len({r["num_events"] for r in runs}) != 1:
+        raise AssertionError("repeated CLI runs gave different event counts")
+    result = sorted(runs, key=lambda r: r["wall_time_s"])[N_CLI // 2]
+    log(f"[cli] center: {cli_line(result)} [{smi}]")
+
+    streamed = counted("center CLI --streaming", CENTER_PATH,
+                       lambda: cli.main(argv + ["--streaming"]))
+    check_npz(streamed, np, W, "center --streaming")
+    log(f"[cli] center --streaming: {cli_line(streamed)} [{smi}]")
+    if streamed["num_events"] != result["num_events"]:
+        raise AssertionError(f"--streaming gave {streamed['num_events']} events, the "
+                             f"batch run {result['num_events']}")
+
+    pano_clip = os.path.join(OUT, "pano.mp4")
+    make_clip(pano_clip, 33, H, PANO_W)
+    pargv = ["-i", pano_clip, "-t", "pano", *common]
+    cli.main(pargv)                                  # warm-up at the pano width
+    pano = {}
+    x_need = 512 if PANO_W > 512 else W           # the 10-bit x field, or the last strip
+    for label, extra in [("pano", []), ("pano --streaming", ["--streaming"])]:
+        res = counted(f"{label} CLI", CENTER_PATH, lambda: cli.main(pargv + extra))
+        ev = check_npz(res, np, PANO_W, label)
+        if res["voxels_shape"] != (32, H, PANO_W, 20) or int(ev["x"].max()) < x_need:
+            raise AssertionError(f"{label}: voxels {res['voxels_shape']}, x up to "
+                                 f"{int(ev['x'].max())}: the strips miss the width")
+        log(f"[cli] {label} ({H}x{PANO_W}, 2 strips, x up to {int(ev['x'].max())}): "
+            f"{cli_line(res)} [{smi}]")
+        pano[label] = res["num_events"]
+    if len(set(pano.values())) != 1:
+        raise AssertionError(f"pano event totals differ: {pano}")
+
+
+def modes_phase(torch, np, counted, dense, smi):
+    """Phase 5: each stage-2 mode, the card against the CPU plain path on 4
+    frames, then end to end on the center clip, counted: through its CLI
+    flag, or through V2cePipeline with the sampler setting where v2ce.py
+    has no flag."""
+    from v2ce_toolbox_tpu_torch import cli
+    from v2ce_toolbox_tpu_torch.config import PipelineConfig, SamplerConfig
+    from v2ce_toolbox_tpu_torch.ops import ldati
+    from v2ce_toolbox_tpu_torch.pipeline import driver
+
+    v, _, _, offsets = dense
+    v4, off4 = v[:4].contiguous(), offsets[:4]
+    draw = ldati.make_draw(1, 0, v.device)
+    clip = os.path.join(OUT, "clip.mp4")
+    absent = os.path.join(OUT, "absent.pt")
+
+    def cpu_draw(j, shape):
+        return draw(j, shape).cpu()
+
+    for mode, (over, flags, kernels) in MODES.items():
+        cfg = dataclasses.replace(SamplerConfig(), **over)
+        card = driver.chunk_events(v4, draw, off4, 4, cfg, FPS)
+        t0 = time.time()
+        plain = driver.chunk_events(v4.cpu(), cpu_draw, off4.cpu(), 4, cfg, FPS)
+        cpu_s = time.time() - t0
+        if len(card) == 0 or card.tobytes() != plain.tobytes():
+            raise AssertionError(f"mode {mode}: the card's stage 2 ({len(card)} events) "
+                                 f"differs from the CPU plain path ({len(plain)})")
+        if flags is not None:
+            argv = ["-i", clip, "-o", OUT, "-m", absent, "--device", DEVICE, "--seed", "0",
+                    "--height", str(H), "--width", str(W), "-l", "warning", *flags]
+            run, how = (lambda: cli.main(argv)), f"cli {' '.join(flags) or '(defaults)'}"
+        else:
+            pipe = driver.V2cePipeline(PipelineConfig(height=H, width=W, sampler=cfg),
+                                       model_path=absent, device=DEVICE, seed=0)
+            run = lambda: pipe.run(input_video_path=clip, out_folder=OUT)  # noqa: E731
+            how = f"V2cePipeline {over}"
+        runs = [counted(f"mode {mode}", kernels, run, how)] + [run() for _ in range(2)]
+        for r in runs:
+            check_npz(r, np, W, f"mode {mode}", monotone=mode != "random")
+        r = sorted(runs, key=lambda r: r["timings"]["stage2_s"])[1]
+        log(f"[mode] {mode}: 4-frame chunk card == CPU plain ({len(card)} events, CPU "
+            f"{cpu_s:.1f} s); {how}, median of 3: {cli_line(r)} [{smi}]")
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    t_start = time.time()
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from v2ce_toolbox_tpu_torch import cli, ops
+    from v2ce_toolbox_tpu_torch import ops
     from v2ce_toolbox_tpu_torch.config import ModelConfig, SamplerConfig
-    from v2ce_toolbox_tpu_torch.events import EVENT_DTYPE
     from v2ce_toolbox_tpu_torch.models import V2ce3d
-    from v2ce_toolbox_tpu_torch.ops import _cuda, compact, gen, ldati
+    from v2ce_toolbox_tpu_torch.ops import _cuda
     from v2ce_toolbox_tpu_torch.pipeline import driver
     from v2ce_toolbox_tpu_torch.utils.weights import init_weights
 
@@ -127,7 +471,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     log(smi)
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
     torch.backends.cudnn.allow_tf32 = False
@@ -141,108 +485,20 @@ def main():
         f"(nvcc {_cuda.build_seconds if _cuda.build_seconds is not None else 'cached'})")
 
     # 3. kernels against their plain twins at the main-path shapes
-    scfg = SamplerConfig()
-    fps, f, h, w = 30, 24, 260, 346
-    offsets = torch.from_numpy((np.arange(f) / fps * 1e6).astype(np.int32)).to(dev)
-    vb = 18
-    timings = {}
-    dense_v = dense_events = None
-    for density, scale in [(0.05, 1.5), (0.3, 5.0)]:
-        g = torch.Generator(device=dev).manual_seed(1234)
-        v = ((torch.rand((f, 2, 10, h, w), generator=g, device=dev) < density)
-             * torch.rand((f, 2, 10, h, w), generator=g, device=dev) * scale).contiguous()
-        draw = ldati.make_draw(0, 0, dev)
-        k2_calls, k3_calls = [], []
-        with record_calls([ldati, driver], "compact_rows", k2_calls), \
-                record_calls([driver], "merge_sorted_rows", k3_calls):
-            events = driver._fetch_chunk_events_fused(v, draw, offsets, f, scfg, fps,
-                                                      width=w)
-        torch.cuda.synchronize()
-        kw1 = dict(fps=fps, mepv=scfg.max_events_per_voxel, vox_bits=vb,
-                   cap_bin=scfg.cap_bin)
-        err1 = max_abs_err(gen.gen_compact(v, **kw1), gen.gen_compact_torch(v, **kw1))
-        errs = {"gen_compact": err1, "compact_rows": 0, "merge_sorted_rows": 0}
-        for name, calls, kernel, plain in [
-                ("compact_rows", k2_calls, compact.compact_rows, compact.compact_rows_torch),
-                ("merge_sorted_rows", k3_calls, compact.merge_sorted_rows,
-                 compact.merge_sorted_rows_torch)]:
-            for args, kwargs in calls:
-                errs[name] = max(errs[name], max_abs_err(kernel(*args, **kwargs),
-                                                         plain(*args, **kwargs)))
-        shapes = {"compact_rows": [(tuple(a[0].shape), kw) for a, kw in k2_calls],
-                  "merge_sorted_rows": [(tuple(a[0].shape), kw) for a, kw in k3_calls]}
-        log(f"[kernels] density {density} x{scale}: events {len(events)}, "
-            f"max_abs_err {errs}, K2 calls {shapes['compact_rows']}, "
-            f"K3 calls {shapes['merge_sorted_rows']}")
-        for name, e in errs.items():
-            if e != 0:
-                raise AssertionError(f"{name} differs from its plain twin: {e}")
-        if density == 0.3:
-            dense_v, dense_events, dense_draw = v, events, draw
-            tk, tp = time_pair(lambda: gen.gen_compact(v, **kw1),
-                               lambda: gen.gen_compact_torch(v, **kw1), torch)
-            timings["gen_compact"] = (tk, tp, errs["gen_compact"])
-            for name, calls, kernel, plain in [
-                    ("compact_rows", k2_calls, compact.compact_rows,
-                     compact.compact_rows_torch),
-                    ("merge_sorted_rows", k3_calls, compact.merge_sorted_rows,
-                     compact.merge_sorted_rows_torch)]:
-                tk = tp = 0.0
-                for args, kwargs in calls:
-                    a, b = time_pair(lambda: kernel(*args, **kwargs),
-                                     lambda: plain(*args, **kwargs), torch)
-                    log(f"[time] {name} {tuple(args[0].shape)} {kwargs}: "
-                        f"kernel {a:.4f} ms, plain {b:.4f} ms")
-                    tk, tp = tk + a, tp + b
-                timings[name] = (tk, tp, errs[name])
-            log(f"[time] gen_compact {tuple(v.shape)}: kernel {timings['gen_compact'][0]:.4f}"
-                f" ms, plain {timings['gen_compact'][1]:.4f} ms")
+    results, errs, dense = kernels_phase(torch, np, dev)
+    dense_v, dense_events, dense_draw, offsets = dense
 
-    # 4. the CLI main path, counted
-    import cv2
+    # 4. the CLI paths, counted
+    counted = Counted(torch, ops)
+    cli_phase(torch, np, counted, smi)
 
-    from tools.make_test_video import make_frames
+    # 5. the other stage-2 modes, counted
+    modes_phase(torch, np, counted, dense, smi)
+    for name in KERNELS:
+        if counted.by_path[KERNEL_PATH[name]][name] <= 0:
+            raise AssertionError(f"{KERNEL_PATH[name]} never launched {name}")
 
-    os.makedirs(OUT, exist_ok=True)
-    clip = os.path.join(OUT, "clip.mp4")
-    video = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"mp4v"), 30, (346, 260))
-    for fr in make_frames(33, 260, 346):
-        video.write(cv2.cvtColor(fr, cv2.COLOR_GRAY2BGR))
-    video.release()
-    argv = ["-i", clip, "-o", OUT, "-m", os.path.join(OUT, "absent.pt"),
-            "--device", "cuda", "--seed", "0", "-l", "warning"]
-    cli.main(argv)                                   # warm-up (cuDNN, allocator)
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    result = cli.main(argv)
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    log(f"[cli] launches {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"the CLI run never launched {name}")
-    ev = np.load(result["event_stream_path"])["event_stream"]
-    if ev.dtype != EVENT_DTYPE:
-        raise AssertionError(f"npz dtype {ev.dtype} != {EVENT_DTYPE}")
-    if len(ev) and not (ev["x"].min() >= 0 and ev["x"].max() < 346
-                        and ev["y"].min() >= 0 and ev["y"].max() < 260
-                        and np.all(np.diff(ev["timestamp"]) >= 0)
-                        and ev["timestamp"].min() >= 0
-                        and ev["timestamp"].max() < 32 / 30 * 1e6):
-        raise AssertionError("CLI events outside the 260x346 frame or unsorted")
-    # the host shares its cores: report the run with the median wall time
-    runs = [result] + [cli.main(argv) for _ in range(N_CLI - 1)]
-    if len({r["num_events"] for r in runs}) != 1:
-        raise AssertionError("repeated CLI runs gave different event counts")
-    result = sorted(runs, key=lambda r: r["wall_time_s"])[N_CLI // 2]
-    t = result["timings"]
-    log(f"[cli] stage-1 {t['stage1_s'] / t['windows'] * 1e3:.2f} ms/window "
-        f"({t['windows']} windows), stage-2 {t['stage2_s'] / t['chunks'] * 1e3:.2f} "
-        f"ms/chunk ({t['chunks']} chunks), events {result['num_events']}, "
-        f"{result['num_frames'] / result['wall_time_s']:.2f} frames/s "
-        f"({result['num_frames']} frames in {result['wall_time_s']:.3f} s) [{smi}]")
-
-    # 5. stage 1 on the card against the CPU: the full-width model, seeded
+    # 6. stage 1 on the card against the CPU: the full-width model, seeded
     # weights, one 16-frame window of 64x96 (TF32 off; cuDNN and the CPU
     # sum the conv products in other orders)
     model = V2ce3d(ModelConfig())
@@ -261,26 +517,28 @@ def main():
             or float(ref.abs().max()) == 0 or rel > STAGE1_REL_TOL):
         raise AssertionError("stage 1 on the card disagrees with the CPU")
 
-    # 6. stage 2 alone: kernel path (card) against the plain path (CPU)
+    # 7. stage 2 alone: kernel path (card) against the plain path (CPU)
     t0 = time.time()
     plain = driver._fetch_chunk_events_fused(
-        dense_v.cpu(), lambda j, shape: dense_draw(j, shape).cpu(), offsets.cpu(), f,
-        scfg, fps, width=w)
+        dense_v.cpu(), lambda j, shape: dense_draw(j, shape).cpu(), offsets.cpu(), F,
+        SamplerConfig(), FPS, width=W)
     log(f"[stage2] card {len(dense_events)} events, CPU plain {len(plain)} events "
         f"({time.time() - t0:.1f} s)")
     if len(dense_events) == 0 or dense_events.tobytes() != plain.tobytes():
         raise AssertionError("stage 2 on the card differs from the plain path")
 
-    sources = {"gen_compact": ("v2ce_toolbox_tpu_torch/csrc/gen_compact.cu",
-                               "v2ce_toolbox_tpu/ops/gen_pallas.py:315"),
-               "compact_rows": ("v2ce_toolbox_tpu_torch/csrc/compact_rows.cu",
-                                "v2ce_toolbox_tpu/ops/compact_pallas.py:226"),
-               "merge_sorted_rows": ("v2ce_toolbox_tpu_torch/csrc/merge_rows.cu",
-                                     "v2ce_toolbox_tpu/ops/compact_pallas.py:492")}
-    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[name], "max_abs_err": timings[name][2],
-                "ms": timings[name][0], "plain_ms": timings[name][1]}
-               for name, (src, rep) in sources.items()]
+    kernels = []
+    for name, (src, rep) in KERNELS.items():
+        r = results[TIMED_CASE[name]]
+        path = KERNEL_PATH[name]
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        "launches": counted.by_path[path][name], "launches_path": path,
+                        "launches_by_path": {p: c[name] for p, c in counted.by_path.items()
+                                             if c[name]},
+                        "max_abs_err": errs[name],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": "bytes", "library_ms": None})
+    log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

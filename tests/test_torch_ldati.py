@@ -71,9 +71,12 @@ def test_production_draws_repeat_per_chunk_and_slot():
     assert u.dtype == torch.float32 and float(u.min()) >= 0 and float(u.max()) < 1
 
 
-@pytest.mark.parametrize("bad", [dict(additional_events_strategy="random"),
-                                 dict(pooling_type="avg"), dict(bidirectional=True),
-                                 dict(max_events_per_voxel=1)])
+@pytest.mark.parametrize("bad", [
+    # (sampler settings, height, width): the packed key cannot hold the
+    # voxel ids, which is the JAX package's v2 core (ROADMAP)
+    (dict(), 260, 1009), (dict(additional_events_strategy="random"), 260, 1024),
+    (dict(fps=10), 260, 346), (dict(pooling_type="avg", bidirectional=True), 520, 692)])
 def test_uncovered_sampler_modes_raise(bad):
+    settings, h, w = bad
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ldati.check_config(SamplerConfig(**bad), 2, 10, 16, 24)
+        ldati.check_config(SamplerConfig(**settings), 2, 10, h, w)

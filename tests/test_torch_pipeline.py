@@ -15,6 +15,8 @@ from v2ce_toolbox_tpu_torch.events import EVENT_DTYPE
 from v2ce_toolbox_tpu_torch.io.video import VideoReader
 from v2ce_toolbox_tpu_torch.pipeline.driver import V2cePipeline
 
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
+
 SMALL = dict(base_num_channels=4, num_encoders=2, num_residual_blocks=1)
 H, W, N = 64, 86, 18
 
@@ -78,9 +80,12 @@ def test_run_writes_event_stream(clip, pipeline, tmp_path):
     assert t["windows"] == 2 and t["chunks"] == 1
 
 
-@pytest.mark.parametrize("flag", [["--streaming"], ["--bf16"], ["-t", "pano"],
-                                  ["--stage2_strategy", "random"],
-                                  ["--stage2_pooling", "avg"]])
+@pytest.mark.parametrize("flag", [
+    # bf16 stage 1 is not ported; nor is the v2 sampler core, which the
+    # JAX package runs where the packed key cannot hold the voxel ids (a
+    # 10 fps bin, or a pano stream wider than 1008 px at 30 fps)
+    ["--bf16"], ["--bf16", "--streaming"], ["--bf16", "-t", "pano"],
+    ["--fps", "10"], ["-t", "pano", "--height", "768"]])
 def test_cli_uncovered_flags_raise(clip, flag, tmp_path):
     from v2ce_toolbox_tpu_torch import cli
 

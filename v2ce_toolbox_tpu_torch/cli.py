@@ -6,8 +6,8 @@ Same flag surface as the JAX package's `v2ce.py`, plus --device and
     python -m v2ce_toolbox_tpu_torch.cli -i input.mp4 -t center
 
 Writes an event-frame preview mp4 and a `<name>-events.npz` structured
-event stream. Flags whose paths are not ported yet (--streaming, --bf16,
--t pano, a strategy other than slope, pooling) raise NotImplementedError.
+event stream. Every flag runs except --bf16, which raises
+NotImplementedError (ROADMAP, queue 1).
 """
 
 from __future__ import annotations
@@ -57,15 +57,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-b", "--batch_size", type=int, default=1)
     p.add_argument("--stage2_batch_size", type=int, default=24)
     p.add_argument("--streaming", type=SBool, default=False, nargs="?", const=True,
-                   help="not ported yet")
+                   help="run stage 1 and stage 2 per window; memory O(window)")
     p.add_argument("--bf16", type=SBool, default=False, nargs="?", const=True,
-                   help="not ported yet")
+                   help="bf16 stage 1 (not ported yet)")
     p.add_argument("--stage2_strategy", type=str, default="slope",
                    choices=["slope", "random", "none"],
-                   help="LDATI additional-events strategy (only slope is ported)")
+                   help="LDATI additional-events strategy")
     p.add_argument("--stage2_pooling", type=str, default="none",
                    choices=["none", "avg", "weighted"],
-                   help="spatial pooling before the slope fit (only none is ported)")
+                   help="spatial pooling before the slope fit")
     p.add_argument("--stage2_sort_cap", type=int, default=1 << 14,
                    help="pre-sort per-(frame,bin) row compaction width; 0 "
                         "disables. Overflow is counted in `dropped` exactly")
@@ -86,10 +86,9 @@ def main(argv=None):
     for path in (args.image_folder, args.input_video_path):
         if path is not None and not os.path.exists(path):
             parser.error(f"{path} does not exist")
-    if args.streaming:
-        raise NotImplementedError("--streaming is not ported yet (ROADMAP item 7)")
     if args.bf16:
-        raise NotImplementedError("--bf16 is not ported yet (ROADMAP item 8)")
+        raise NotImplementedError("--bf16 is not ported yet (ROADMAP, queue 1: bf16 "
+                                  "stage 1)")
 
     from v2ce_toolbox_tpu_torch.config import PipelineConfig, SamplerConfig
     from v2ce_toolbox_tpu_torch.pipeline.driver import V2cePipeline
@@ -116,7 +115,8 @@ def main(argv=None):
     )
     pipeline = V2cePipeline(config, model_path=args.model_path,
                             device=args.device, seed=args.seed)
-    result = pipeline.run(
+    run = pipeline.run_streaming if args.streaming else pipeline.run
+    result = run(
         input_video_path=args.input_video_path,
         image_folder=args.image_folder,
         out_folder=args.out_folder,

@@ -1,8 +1,8 @@
 """Configuration dataclasses for the V2CE pipeline (product fields only).
 
 Same field names and defaults as `v2ce_toolbox_tpu/config.py`, minus the
-TPU-only knobs (conv backends, sub-pixel decoder, layouts, remat and the
-fused-generation switch: the port has one generation kernel).
+TPU-only knobs of the stage-1 model (conv backends, sub-pixel decoder,
+layouts, remat).
 """
 
 from __future__ import annotations
@@ -47,21 +47,23 @@ class SamplerConfig:
     `dropped`, never silently lost."""
 
     fps: int = 30
-    additional_events_strategy: str = "slope"   # only 'slope' is ported
-    pooling_type: str = "none"                   # only 'none' is ported
-    bidirectional: bool = False                  # only False is ported
+    additional_events_strategy: str = "slope"   # 'none' | 'random' | 'slope'
+    pooling_type: str = "none"                   # 'none' | 'avg' | 'weighted'
+    pooling_kernel_size: int = 3
+    bidirectional: bool = False
     max_events_per_voxel: int = 32
     event_capacity: int = 1 << 19                # per-frame stream slots
     cap_bin: int = 1 << 14        # chain events kept per (frame, bin) row
     multi_cap: int = 4096         # multi-event voxel pool per row
     sort_cap: Optional[int] = 1 << 14  # pre-sort row compaction width
+    use_gen_compact: bool = True  # fuse generation + chain compaction (K1)
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """End-to-end inference settings."""
 
-    infer_type: str = "center"    # only 'center' is ported
+    infer_type: str = "center"    # 'center' | 'pano'
     seq_len: int = SEQ_LEN
     height: int = SENSOR_HEIGHT
     width: int = SENSOR_WIDTH

@@ -23,20 +23,23 @@ import time
 from typing import Optional
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-_SOURCES = ("compact_rows.cu", "merge_rows.cu", "gen_compact.cu")
+_SOURCES = ("compact_rows.cu", "merge_rows.cu", "gen_compact.cu", "gen_pack.cu")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # entry point -> argtypes (the trailing pointer is the CUDA stream)
 _SIGNATURES = {
-    "v2ce_compact_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "v2ce_compact_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "v2ce_merge_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "v2ce_gen_compact": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "v2ce_gen_pack": [_P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "v2ce_append_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -69,25 +72,45 @@ def library_path() -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile the kernels if the library for these sources is missing;
-    returns its path. Writes to a temporary name first, so a concurrent or
-    interrupted build never leaves a half-written library behind."""
+    returns its path. One nvcc per source, all started together, then one
+    link. Everything is written under a temporary directory first, so a
+    concurrent or interrupted build never leaves a half-written library
+    behind."""
     global build_seconds
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(path))
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *[os.path.join(_CSRC, s) for s in _SOURCES]]
+    tmp = tempfile.mkdtemp(dir=os.path.dirname(path))
+    nvcc = _nvcc()
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr)
-    os.replace(tmp, path)
+    procs = []
+    try:
+        for s in _SOURCES:
+            obj = os.path.join(tmp, s[:-3] + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-c", "-o", obj, os.path.join(_CSRC, s)]
+            procs.append((s, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                   stderr=subprocess.PIPE, text=True)))
+        for s, _, p in procs:
+            err = p.communicate()[1]
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n{err}")
+            if verbose:
+                print(f"[nvcc {s}]\n{err}")
+        so = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so,
+                               *[obj for _, obj, _ in procs]],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(so, path)
+    finally:
+        for _, _, p in procs:           # after a failure, stop the other builds
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
     build_seconds = time.time() - t0
     return path
 

@@ -1,10 +1,12 @@
-"""Row compaction (K2) and sorted-row merge (K3), each with its plain twin.
+"""Row compaction (K2), sorted-row merge (K3) and the prefix append (K5),
+each with its plain twin.
 
-`compact_rows` and `merge_sorted_rows` are the port's counterparts of
-`v2ce_toolbox_tpu/ops/compact_pallas.py`. On a CPU tensor they run their
-plain-torch twins; on a CUDA tensor they launch the hand-written kernels
-of `csrc/compact_rows.cu` and `csrc/merge_rows.cu`, or raise. There is no
-fallback from the kernels to the twins.
+`compact_rows`, `merge_sorted_rows` and `append_rows` are the port's
+counterparts of `v2ce_toolbox_tpu/ops/compact_pallas.py`. On a CPU tensor
+they run their plain-torch twins; on a CUDA tensor they launch the
+hand-written kernels of `csrc/compact_rows.cu` and `csrc/merge_rows.cu`
+(K5 is K3's merge of all R rows into one, with its own entry and launch
+count), or raise. There is no fallback from the kernels to the twins.
 """
 
 from __future__ import annotations
@@ -16,10 +18,11 @@ import torch
 from v2ce_toolbox_tpu_torch.ops import _cuda
 
 INVALID = 2 ** 31 - 1          # int32 max marks an empty slot
+_TILE = 8192                   # keys per block of csrc/compact_rows.cu
 
 # launches of each kernel since the last reset (the wrappers add one per
 # call that reaches the card)
-launches = {"compact_rows": 0, "merge_sorted_rows": 0}
+launches = {"compact_rows": 0, "merge_sorted_rows": 0, "append_rows": 0}
 
 Out = Tuple[torch.Tensor, Tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]
 
@@ -95,15 +98,19 @@ def compact_rows(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
     for p in payloads:
         check_cuda_int32("compact_rows payload", p, (r, n))
     capp = _round_up(cap, chunk)
+    if r > 65535 or n > (1 << 31) - _TILE or capp > (1 << 31) - _TILE:
+        raise ValueError(f"compact_rows: ({r}, {n}) -> cap {capp} exceeds the kernel's "
+                         "limits")
     out_k = torch.empty((r, capp), dtype=torch.int32, device=keys.device)
     out_p = tuple(torch.empty_like(out_k) for _ in payloads)
+    tile_counts = torch.empty((r, -(-n // _TILE)), dtype=torch.int32, device=keys.device)
     kept = torch.empty((r,), dtype=torch.int32, device=keys.device)
     total = torch.empty_like(kept)
     with torch.cuda.device(keys.device):
         err = _cuda.lib().v2ce_compact_rows(
             keys.data_ptr(), payloads[0].data_ptr() if payloads else None,
             out_k.data_ptr(), out_p[0].data_ptr() if out_p else None,
-            kept.data_ptr(), total.data_ptr(), r, n, capp,
+            tile_counts.data_ptr(), kept.data_ptr(), total.data_ptr(), r, n, capp,
             _cuda.stream_of(keys))
     _cuda.check(err, "compact_rows")
     launches["compact_rows"] += 1
@@ -183,4 +190,62 @@ def merge_sorted_rows(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
             r, wd, nb, cap, _cuda.stream_of(keys))
     _cuda.check(err, "merge_sorted_rows")
     launches["merge_sorted_rows"] += 1
+    return out_k, out_p, kept, total
+
+
+# ---------------------------------------------------------------------------
+# K5: collapse prefix-packed rows into one stream
+# ---------------------------------------------------------------------------
+
+def append_rows_torch(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
+                      *, cap: int, chunk: int) -> Out:
+    """Plain twin of `append_rows` (any device): the merge of all R rows."""
+    return merge_sorted_rows_torch(keys, payloads, nb=keys.shape[0],
+                                   cap=_round_up(cap, chunk))
+
+
+def append_rows(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
+                *, cap: int, chunk: int = 8192) -> Out:
+    """Collapse R prefix-packed rows into one front-packed row (counterpart
+    of compact_pallas.append_rows, `compact_pallas.py:632`): the valid keys
+    of each row must form a prefix, as in per-frame event buffers.
+
+    Args:
+      keys: (R, W) int32, any W; INVALID marks empty slots.
+      payloads: zero or one int32 arrays of the same shape.
+      cap: output capacity, rounded up to a multiple of `chunk` (cap'): the
+        TPU kernel drops whole chunks, which keeps exactly the first cap'
+        valids.
+    Returns:
+      (out_keys (1, cap'), out_payloads, kept (1,), total (1,)): INVALID
+      keys / zero payloads past kept = min(total, cap').
+    """
+    if chunk % 128:
+        raise ValueError(f"chunk={chunk} must be a multiple of 128")
+    if keys.device.type == "cpu":
+        return append_rows_torch(keys, payloads, cap=cap, chunk=chunk)
+    payloads = tuple(payloads)
+    if len(payloads) > 1:
+        raise ValueError("the append_rows kernel routes at most one payload")
+    r, wd = keys.shape
+    check_cuda_int32("append_rows keys", keys, (r, wd))
+    for p in payloads:
+        check_cuda_int32("append_rows payload", p, (r, wd))
+    capp = _round_up(cap, chunk)
+    if r > 65535 or r * wd >= 1 << 31 or capp >= 1 << 31:
+        raise ValueError(f"append_rows: ({r}, {wd}) -> {capp} exceeds the kernel's limits")
+    dev = keys.device
+    out_k = torch.empty((1, capp), dtype=torch.int32, device=dev)
+    out_p = tuple(torch.empty_like(out_k) for _ in payloads)
+    lengths = torch.empty((r,), dtype=torch.int32, device=dev)
+    kept = torch.empty((1,), dtype=torch.int32, device=dev)
+    total = torch.empty_like(kept)
+    with torch.cuda.device(dev):
+        err = _cuda.lib().v2ce_append_rows(
+            keys.data_ptr(), payloads[0].data_ptr() if payloads else None,
+            out_k.data_ptr(), out_p[0].data_ptr() if out_p else None,
+            lengths.data_ptr(), kept.data_ptr(), total.data_ptr(),
+            r, wd, capp, _cuda.stream_of(keys))
+    _cuda.check(err, "append_rows")
+    launches["append_rows"] += 1
     return out_k, out_p, kept, total

@@ -1,11 +1,19 @@
-"""End-to-end video -> voxels -> events pipeline driver (center mode).
+"""End-to-end video -> voxels -> events pipeline driver.
 
   host:   decode + resize
-  device: pair-stack + normalize + V2ce3d forward per window batch, the
-          window merge, the event-frame render, and per chunk of
+  device: pair-stack + normalize + V2ce3d forward per window batch (center
+          crop, or pano strips folded into the batch axis), the window
+          merge, the event-frame render, and per chunk of
           `stage2_batch_size` frames the LDATI sampler with the stream
           flatten and the bit-packed wire format
   host:   wire decode into the `event_stream` npz, and the preview mp4
+
+`run` holds the whole clip's voxels; `run_streaming` runs the same steps
+per 16-frame window and keeps only the per-polarity sums for the preview.
+Stage 2 takes the fused route (the sampler's post-sort rows straight into
+the wire format, `_fetch_chunk_events_fused`) unless the configuration
+needs the EventStream route (bidirectional relocation):
+`sample_events` -> per-frame buffers -> `_flatten_chunk_stream` (K5).
 
 Wire format (as in v2ce_toolbox_tpu/pipeline/driver.py): each event is a
 (10 + x_bits + delta_bits)-bit record — delta µs to the previous event in
@@ -29,14 +37,29 @@ import numpy as np
 import torch
 
 from v2ce_toolbox_tpu_torch.config import PipelineConfig, SamplerConfig
-from v2ce_toolbox_tpu_torch.events import EVENT_DTYPE
+from v2ce_toolbox_tpu_torch.events import EVENT_DTYPE, EventStream, to_recarrays
 from v2ce_toolbox_tpu_torch.models import V2ce3d
 from v2ce_toolbox_tpu_torch.ops.bitpack import pack_bits, unpack_bits
-from v2ce_toolbox_tpu_torch.ops.compact import INVALID, compact_rows, merge_sorted_rows
-from v2ce_toolbox_tpu_torch.ops.ldati import Draw, check_config, make_draw, sample_rows
+from v2ce_toolbox_tpu_torch.ops.compact import (
+    INVALID,
+    append_rows,
+    compact_rows,
+    merge_sorted_rows,
+)
+from v2ce_toolbox_tpu_torch.ops.ldati import (
+    Draw,
+    check_config,
+    make_draw,
+    sample_events,
+    sample_rows,
+    supports_rows,
+)
 from v2ce_toolbox_tpu_torch.pipeline.infer import make_forward_fn
 from v2ce_toolbox_tpu_torch.pipeline.preprocess import resize_frames
-from v2ce_toolbox_tpu_torch.pipeline.render import render_event_frames_cmajor
+from v2ce_toolbox_tpu_torch.pipeline.render import (
+    render_event_frames_cmajor,
+    render_event_frames_from_sums,
+)
 from v2ce_toolbox_tpu_torch.pipeline.windows import plan_windows
 from v2ce_toolbox_tpu_torch.utils.weights import load_weights
 
@@ -58,12 +81,16 @@ def _sparse_delta_bits(x_bits: int) -> int:
     return min(12, 32 - (10 + x_bits))
 
 
-def _side_cap(frames: int, cap: int, span_us: int, delta_bits: int = DELTA_BITS) -> int:
-    """Side-list capacity. The stream is time-sorted, so every marker means
-    a gap >= the marker value: a chunk spanning span_us holds at most
-    span_us / marker of them, plus the first event of each frame."""
+def _side_cap(frames: int, cap: int, span_us: int, delta_bits: int = DELTA_BITS,
+              monotone: bool = True) -> int:
+    """Side-list capacity. A time-sorted stream's every marker means a gap
+    >= the marker value: a chunk spanning span_us holds at most span_us /
+    marker of them, plus the first event of each frame. 'random' streams
+    are not time-sorted (per-bin sorts of raw U[0, 1) s offsets), so any
+    event can be a marker: the bound is the event count."""
     marker = (1 << delta_bits) - 1
-    n = min(frames * cap, span_us // marker + frames + 64)
+    bound = span_us // marker + frames + 64 if monotone else frames * cap
+    n = min(frames * cap, bound)
     return -(-n // 2048) * 2048
 
 
@@ -71,7 +98,7 @@ def _flatten_rows(rel: torch.Tensor, gvox: torch.Tensor, total_emit: torch.Tenso
                   cap_drop: torch.Tensor, offsets_us: torch.Tensor, *,
                   h: int, w: int, capacity: int, frames: int, fps: int,
                   skip_lead: int = 0, side_cap: int = 1 << 17,
-                  delta_bits: int = DELTA_BITS, x_bits: int = 9):
+                  delta_bits: int = DELTA_BITS, x_bits: int = 9, monotone: bool = True):
     """The wire format assembled on the sampler's post-sort rows, then one
     merge (K3) into the flat stream (`driver.py:204-314` of the JAX
     package).
@@ -149,10 +176,15 @@ def _flatten_rows(rel: torch.Tensor, gvox: torch.Tensor, total_emit: torch.Tenso
     words = pack_bits(out_recs[0], pbits + delta_bits)
 
     # side list: the markers' absolute µs in stream order; a time-sorted
-    # row spans one bin, so it holds at most span/marker + 1 markers
-    side_chunk = 4096 if wd >= 4096 else wd
+    # row spans one bin, so it holds at most span/marker + 1 markers, while
+    # a 'random' row can be all markers
+    if monotone:
+        side_chunk = side_row_cap = 4096 if wd >= 4096 else wd
+    else:
+        side_chunk, side_row_cap = min(4096, wd), wd
     side_cand = torch.where(is_exc, t_abs.to(torch.int32), INVALID)
-    side_rows, _, _, ns_tot = compact_rows(side_cand, (), cap=side_chunk, chunk=side_chunk)
+    side_rows, _, _, ns_tot = compact_rows(side_cand, (), cap=side_row_cap,
+                                           chunk=side_chunk)
     side_cap_eff = min(-(-side_cap // 128) * 128, rr * side_rows.shape[1])
     side_flat, _, n_side, _ = merge_sorted_rows(side_rows, (), nb=rr, cap=side_cap_eff)
     return words, kept[0], side_flat[0], n_side[0], ns_tot.sum(), dropped
@@ -182,35 +214,10 @@ def _decode_packed_events(words: np.ndarray, side_key: np.ndarray, n: int,
     return ts, x, y, p
 
 
-def _fetch_chunk_events_fused(voxels: torch.Tensor, draw: Draw,
-                              offsets_us: torch.Tensor, frames: int,
-                              scfg: SamplerConfig, fps: int, skip_lead: int = 0,
-                              base_us: int = 0, width: int = 512) -> np.ndarray:
-    """Sample one chunk (F, 2, 10, H, W), flatten it to the wire format,
-    fetch and decode it to an EVENT_DTYPE array. The dense (3-bit delta)
-    encoding is tried first; a stream whose markers exceed 9/32 of its
-    events is re-encoded in the sparse format from the same sampled rows
-    (the JAX package re-samples with the same draws; the rows are equal)."""
-    f, _, _, h, w = voxels.shape
-    scfg = dataclasses.replace(scfg, fps=fps)
-    rows = sample_rows(voxels, draw, scfg)
-    span = int((f + 1) * 1e6 / fps) + 2
-    x_bits = _x_bits_for_width(width)
-    kw = dict(h=h, w=w, capacity=scfg.event_capacity, frames=frames, fps=fps,
-              skip_lead=skip_lead, x_bits=x_bits)
-    bits = DELTA_BITS
-    scap = _side_cap(f, scfg.event_capacity, span, bits)
-    words, kept, side_key, n_side, side_total, _ = _flatten_rows(
-        *rows, offsets_us, side_cap=scap, delta_bits=bits, **kw)
-    n, m = int(kept), int(n_side)
-    assert int(side_total) == m <= scap, (int(side_total), m, scap)
-    if m > n * _SPARSE_SWITCH:
-        bits = _sparse_delta_bits(x_bits)
-        scap = _side_cap(f, scfg.event_capacity, span, bits)
-        words, kept, side_key, n_side, side_total, _ = _flatten_rows(
-            *rows, offsets_us, side_cap=scap, delta_bits=bits, **kw)
-        n, m = int(kept), int(n_side)
-        assert int(side_total) == m <= scap, (int(side_total), m, scap)
+def _to_records(words: torch.Tensor, side_key: torch.Tensor, n: int, m: int, bits: int,
+                x_bits: int, base_us: int) -> np.ndarray:
+    """Fetch the kept prefix of the wire words and side list, decode it to
+    an EVENT_DTYPE array and add the chunk's int64 start."""
     ts, x_, y_, p_ = _decode_packed_events(
         words[:, :-(-n // 32)].cpu().numpy(), side_key[:m].cpu().numpy(), n,
         delta_bits=bits, x_bits=x_bits)
@@ -220,9 +227,145 @@ def _fetch_chunk_events_fused(voxels: torch.Tensor, draw: Draw,
     return out
 
 
+def _encode_adaptive(flatten, frames: int, cap: int, span_us: int, x_bits: int,
+                     monotone: bool, base_us: int) -> np.ndarray:
+    """The dense (3-bit delta) wire encoding first; a stream whose markers
+    exceed 9/32 of its events is re-encoded with the widest delta.
+    `flatten(delta_bits, side_cap)` returns (words, kept, side_key, n_side,
+    side_total); the kept prefix is fetched and decoded to EVENT_DTYPE."""
+    for bits in (DELTA_BITS, _sparse_delta_bits(x_bits)):
+        scap = _side_cap(frames, cap, span_us, bits, monotone)
+        words, kept, side_key, n_side, side_total = flatten(bits, scap)
+        n, m = int(kept), int(n_side)
+        assert int(side_total) == m <= scap, (int(side_total), m, scap)
+        if m <= n * _SPARSE_SWITCH:
+            break
+    return _to_records(words, side_key, n, m, bits, x_bits, base_us)
+
+
+def _fetch_chunk_events_fused(voxels: torch.Tensor, draw: Draw,
+                              offsets_us: torch.Tensor, frames: int,
+                              scfg: SamplerConfig, fps: int, skip_lead: int = 0,
+                              base_us: int = 0, width: int = 512) -> np.ndarray:
+    """Sample one chunk (F, 2, 10, H, W), flatten it to the wire format,
+    fetch and decode it to an EVENT_DTYPE array. A sparse re-encode starts
+    from the same sampled rows (the JAX package re-samples with the same
+    draws; the rows are equal)."""
+    f, _, _, h, w = voxels.shape
+    scfg = dataclasses.replace(scfg, fps=fps)
+    rows = sample_rows(voxels, draw, scfg)
+    monotone = scfg.additional_events_strategy != "random"
+    x_bits = _x_bits_for_width(width)
+
+    def flatten(bits, side_cap):
+        return _flatten_rows(*rows, offsets_us, h=h, w=w, capacity=scfg.event_capacity,
+                             frames=frames, fps=fps, skip_lead=skip_lead,
+                             side_cap=side_cap, delta_bits=bits, x_bits=x_bits,
+                             monotone=monotone)[:5]
+
+    return _encode_adaptive(flatten, f, scfg.event_capacity, int((f + 1) * 1e6 / fps) + 2,
+                            x_bits, monotone, base_us)
+
+
+def _flatten_chunk_stream(s: EventStream, offsets_us: torch.Tensor, frames: int,
+                          skip_lead: int = 0, side_cap: int = 1 << 17,
+                          delta_bits: int = DELTA_BITS, x_bits: int = 9):
+    """Device-side flatten of a chunk's per-frame event buffers into one
+    valid-prefix bit-packed stream (`driver.py:101-157` of the JAX
+    package): the buffers are appended (K5), the deltas taken on the flat
+    stream, and the markers' absolute µs compacted (K2) into the side list.
+    `skip_lead` drops the first frames.
+
+    Returns (words (10 + x_bits + delta_bits, N/32) int32 holding uint32
+    bits, kept, side_key, n_side, side_total)."""
+    t_us = s.t_us[:frames]
+    cap = t_us.shape[1]
+    dev = t_us.device
+    slot = torch.arange(cap, device=dev)[None, :]
+    valid = slot < s.count[:frames, None]
+    if skip_lead:
+        valid = valid & (torch.arange(frames, device=dev)[:, None] >= skip_lead)
+    keys = torch.where(valid, t_us + offsets_us[:frames, None], INVALID)
+    pbits = 10 + x_bits
+    payload = torch.where(
+        valid, (s.x[:frames].to(torch.int32) << 10) | (s.y[:frames].to(torch.int32) << 1)
+        | s.p[:frames].to(torch.int32), 0)
+    # each frame row is a valid prefix (slot < count): an append, not a
+    # compaction
+    out_k, (out_p,), kept, _ = append_rows(keys, [payload], cap=frames * cap,
+                                           chunk=min(8192, -(-cap // 128) * 128))
+    out_k, out_p = out_k[0], out_p[0]
+
+    marker = (1 << delta_bits) - 1
+    idx = torch.arange(out_k.shape[0], dtype=torch.int32, device=dev)
+    in_prefix = idx < kept
+    prev = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev), out_k[:-1]])
+    delta = out_k - prev                      # first event: its absolute key
+    is_exc = in_prefix & ((delta < 0) | (delta >= marker))
+    delta_enc = torch.where(is_exc, marker, torch.clamp(delta, min=0))
+    recs = torch.where(in_prefix, (delta_enc << pbits) | out_p, 0)
+    words = pack_bits(recs, pbits + delta_bits)
+
+    side_in = torch.where(is_exc, idx, INVALID)
+    _, (side_key,), n_side, side_total = compact_rows(
+        side_in[None], [out_k[None]], cap=side_cap, chunk=8192)
+    return words, kept[0], side_key[0], n_side[0], side_total[0]
+
+
+def _fetch_chunk_events(s: EventStream, offsets_us: torch.Tensor, frames: int,
+                        fps: float, skip_lead: int = 0, base_us: int = 0,
+                        width: int = 512, monotone: bool = True) -> np.ndarray:
+    """Flatten + fetch + decode one chunk's EventStream, with the same
+    adaptive dense/sparse wire format as the fused route. `offsets_us` are
+    chunk-local int32 frame starts; `base_us` is the chunk's int64 start,
+    added on the host after the decode."""
+    x_bits = _x_bits_for_width(width)
+
+    def flatten(bits, side_cap):
+        return _flatten_chunk_stream(s, offsets_us, frames, skip_lead=skip_lead,
+                                     side_cap=side_cap, delta_bits=bits, x_bits=x_bits)
+
+    return _encode_adaptive(flatten, frames, int(s.t_us.shape[1]),
+                            int((frames + 1) * 1e6 / fps) + 2, x_bits, monotone, base_us)
+
+
+def _fused_flatten_ok(scfg: SamplerConfig, p: int, h: int, w: int, fps: int) -> bool:
+    """Gate of the fused sampler + flatten route (`driver.py:356` of the
+    JAX package); the EventStream route takes the rest."""
+    return (not scfg.bidirectional
+            and supports_rows(p, h, w, fps=fps,
+                              additional_events_strategy=scfg.additional_events_strategy,
+                              pooling_type=scfg.pooling_type))
+
+
+def chunk_events(voxels: torch.Tensor, draw: Draw, offsets_us: torch.Tensor,
+                 frames: int, scfg: SamplerConfig, fps: int, skip_lead: int = 0,
+                 base_us: int = 0) -> np.ndarray:
+    """Stage 2 of one chunk (F, 2, 10, H, W) -> EVENT_DTYPE records, through
+    the fused route where `_fused_flatten_ok`, else the EventStream route."""
+    f, p, _, h, w = voxels.shape
+    if _fused_flatten_ok(scfg, p, h, w, fps):
+        return _fetch_chunk_events_fused(voxels, draw, offsets_us, frames, scfg, fps,
+                                         skip_lead=skip_lead, base_us=base_us, width=w)
+    s = sample_events(voxels, draw, dataclasses.replace(scfg, fps=fps))
+    return _fetch_chunk_events(s, offsets_us, frames, fps, skip_lead=skip_lead,
+                               base_us=base_us, width=w,
+                               monotone=scfg.additional_events_strategy != "random")
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _output_name(cfg: PipelineConfig, input_video_path: Optional[str],
+                 image_folder: Optional[str], out_name_suffix: str) -> str:
+    if image_folder is not None:
+        name = op.basename(op.normpath(image_folder))
+    else:
+        name = op.splitext(op.basename(input_video_path))[0]
+    output_name = f"{name}-ceil_{cfg.ceil}-fps_{cfg.fps}"
+    return f"{output_name}-{out_name_suffix}" if out_name_suffix else output_name
 
 
 class V2cePipeline:
@@ -232,29 +375,60 @@ class V2cePipeline:
                  model_path: Optional[str] = None, device="cuda", seed: int = 0):
         """device: where the model and the sampler run; seed: the weight
         init (when model_path does not exist) and the sampler draws."""
-        if config.infer_type != "center":
-            raise NotImplementedError(
-                f"infer_type={config.infer_type!r}: only 'center' is ported "
-                "(pano is ROADMAP item 9)")
+        if config.infer_type not in ("center", "pano"):
+            raise ValueError(f"invalid infer_type {config.infer_type!r}")
         if config.model.compute_dtype != torch.float32:
-            raise NotImplementedError("bf16 inference is not ported yet")
-        check_config(dataclasses.replace(config.sampler, fps=config.fps), 2, 10,
-                     config.height, config.width)
+            raise NotImplementedError("bf16 inference is not ported yet (ROADMAP, queue 1: "
+                                      "bf16 stage 1)")
         self.config = config
+        if config.infer_type == "center":
+            self._check_sampler(config.width)
         self.device = torch.device(device)
         self.seed = seed
         self.model = V2ce3d(config.model)
         load_weights(self.model, model_path, seed)
         self.model.to(self.device).eval()
-        self._fwd = make_forward_fn(self.model, infer_type=config.infer_type,
-                                    width=config.width)
+        self._fwd_cache = {}
         self.timings = {}
+
+    def _check_sampler(self, out_width: int) -> None:
+        cfg = self.config
+        check_config(dataclasses.replace(cfg.sampler, fps=cfg.fps), 2, 10,
+                     cfg.height, out_width)
 
     # -- stage 1 ----------------------------------------------------------
 
+    def _forward_fn(self, resized_width: int):
+        """The forward step for frames of width resized_width (pano: one per
+        width, checked against the sampler before the first window)."""
+        if resized_width not in self._fwd_cache:
+            cfg = self.config
+            if cfg.infer_type == "pano":
+                self._check_sampler(resized_width)
+            self._fwd_cache[resized_width] = make_forward_fn(
+                self.model, infer_type=cfg.infer_type, width=cfg.width,
+                resized_width=resized_width)
+        return self._fwd_cache[resized_width]
+
+    def _read_window(self, start: int, vidcap=None, image_paths=None) -> np.ndarray:
+        idx = range(int(start), int(start) + self.config.seq_len + 1)
+        if vidcap is not None:
+            raw = vidcap.read_frames_at_indices(idx)
+        else:
+            from v2ce_toolbox_tpu_torch.io.video import read_gray_images
+
+            raw = read_gray_images([image_paths[i] for i in idx])
+        return resize_frames(raw, self.config.height)
+
+    def _forward(self, frames: np.ndarray) -> torch.Tensor:
+        """(b, L+1, H, W') resized frames -> (b, L, 20, H, W_out) voxels."""
+        out = self._forward_fn(frames.shape[-1])(
+            torch.from_numpy(frames).to(self.device))      # (b, L, H, W_out, 20)
+        return out.permute(0, 1, 4, 2, 3)
+
     def video_to_voxels(self, *, vidcap=None, image_paths=None) -> torch.Tensor:
         """Run stage 1 over a whole video; returns the merged voxels in
-        channel-major layout (T, 20, H, W), T = frame_count - 1."""
+        channel-major layout (T, 20, H, W_out), T = frame_count - 1."""
         cfg = self.config
         if (vidcap is None) == (image_paths is None):
             raise ValueError("give exactly one of vidcap and image_paths")
@@ -265,21 +439,12 @@ class V2cePipeline:
 
         def flush():
             if batch:
-                frames = torch.from_numpy(np.stack(batch, axis=0)).to(self.device)
-                out = self._fwd(frames)                     # (b, L, H, W, 20)
-                outputs.append(out.permute(0, 1, 4, 2, 3))  # (b, L, 20, H, W)
+                outputs.append(self._forward(np.stack(batch, axis=0)))
                 batch.clear()
 
         t0 = time.perf_counter()
         for start in starts:
-            idx = range(int(start), int(start) + cfg.seq_len + 1)
-            if vidcap is not None:
-                raw = vidcap.read_frames_at_indices(idx)
-            else:
-                from v2ce_toolbox_tpu_torch.io.video import read_gray_images
-
-                raw = read_gray_images([image_paths[i] for i in idx])
-            batch.append(resize_frames(raw, cfg.height))
+            batch.append(self._read_window(start, vidcap, image_paths))
             if len(batch) == cfg.batch_size:
                 flush()
         flush()
@@ -300,10 +465,10 @@ class V2cePipeline:
 
     # -- stage 2 ----------------------------------------------------------
 
-    def voxels_to_event_stream(self, voxels: torch.Tensor) -> np.ndarray:
-        """Merged voxels (T, 20, H, W) -> ONE structured event stream with
-        the per-frame i/fps offsets applied. Chunks of stage2_batch_size
-        frames are sampled with draws seeded from (seed, chunk index)."""
+    def _chunks(self, voxels: torch.Tensor):
+        """(T, 20, H, W) -> per chunk of stage2_batch_size frames: (index,
+        zero-padded (chunk, 2, 10, H, W) voxels, real frames, int64 offsets
+        of its frames in µs)."""
         cfg = self.config
         t, c, h, w = voxels.shape
         v = voxels.reshape(t, 2, c // 2, h, w)
@@ -315,59 +480,92 @@ class V2cePipeline:
         pad = n_chunks * chunk - t
         if pad:
             v = torch.cat([v, v.new_zeros((pad, *v.shape[1:]))], dim=0)
-        t0 = time.perf_counter()
-        parts = []
         for i in range(n_chunks):
             base = i * chunk
-            frames = min(chunk, t - base)
             offsets64 = ((np.arange(chunk) + base) / cfg.fps * 1e6).astype(np.int64)
+            yield (i, v[base:base + chunk].contiguous(), min(chunk, t - base), offsets64)
+
+    def voxels_to_events(self, voxels: torch.Tensor) -> List[np.ndarray]:
+        """Merged voxels (T, 20, H, W) -> per-frame event recarrays with
+        absolute int64 µs timestamps, through the EventStream route."""
+        cfg = self.config
+        recs: List[np.ndarray] = []
+        scfg = dataclasses.replace(cfg.sampler, fps=cfg.fps)
+        for i, v, _, offsets64 in self._chunks(voxels):
+            s = sample_events(v, make_draw(self.seed, i, v.device), scfg)
+            recs.extend(to_recarrays(s, offsets64))
+        return recs[:voxels.shape[0]]
+
+    def voxels_to_event_stream(self, voxels: torch.Tensor) -> np.ndarray:
+        """Merged voxels (T, 20, H, W) -> ONE structured event stream with
+        the per-frame i/fps offsets applied. Chunks of stage2_batch_size
+        frames are sampled with draws seeded from (seed, chunk index)."""
+        cfg = self.config
+        t0 = time.perf_counter()
+        parts = []
+        n_chunks = 0
+        for i, v, frames, offsets64 in self._chunks(voxels):
             base_us = int(offsets64[0])
-            rel = offsets64 - base_us           # in-chunk: spans chunk/fps s
-            rel_t = torch.from_numpy(rel.astype(np.int32)).to(v.device)
-            parts.append(_fetch_chunk_events_fused(
-                v[base:base + chunk].contiguous(),
-                make_draw(self.seed, i, v.device), rel_t, frames,
-                cfg.sampler, cfg.fps, base_us=base_us, width=w))
+            rel_t = torch.from_numpy((offsets64 - base_us).astype(np.int32)).to(v.device)
+            parts.append(chunk_events(v, make_draw(self.seed, i, v.device), rel_t, frames,
+                                      cfg.sampler, cfg.fps, base_us=base_us))
+            n_chunks += 1
         self.timings.update(stage2_s=time.perf_counter() - t0, chunks=n_chunks)
         return np.concatenate(parts) if parts else np.zeros(0, EVENT_DTYPE)
 
-    # -- full run ---------------------------------------------------------
+    # -- full runs --------------------------------------------------------
+
+    def _write_preview(self, frames: np.ndarray, out_folder: str, output_name: str,
+                       result: dict) -> None:
+        from v2ce_toolbox_tpu_torch.io.video import write_video
+
+        cfg = self.config
+        vis_color = "rgb" if cfg.vis_keep_polarity else "gray"
+        ef_path = op.join(out_folder, f"{cfg.infer_type}-{output_name}-pred_ef_{vis_color}.mp4")
+        write_video(frames, ef_path, cfg.fps)
+        result["event_frame_video"] = ef_path
+
+    def _finish(self, event_stream: np.ndarray, out_folder: str, output_name: str,
+                result: dict, n_frames: int, t_start: float, tag: str = "") -> dict:
+        ev_path = op.join(out_folder, f"{output_name}-events.npz")
+        np.savez(ev_path, event_stream=event_stream)
+        result.update(event_stream_path=ev_path, num_events=int(event_stream.shape[0]),
+                      num_frames=n_frames, wall_time_s=time.time() - t_start,
+                      timings=dict(self.timings))
+        logger.info("%s%d frames -> %d events in %.2fs", tag, n_frames,
+                    result["num_events"], result["wall_time_s"])
+        return result
+
+    def _open(self, input_video_path: Optional[str], image_folder: Optional[str]):
+        """(vidcap or None, image paths or None, frame count)."""
+        from v2ce_toolbox_tpu_torch.io.video import VideoReader, list_image_frames
+
+        cfg = self.config
+        if (input_video_path is None) == (image_folder is None):
+            raise ValueError("give exactly one of input_video_path and image_folder")
+        if image_folder is not None:
+            paths = list_image_frames(image_folder, cfg.max_frame_num)
+            return None, paths, len(paths)
+        vidcap = VideoReader(input_video_path, color_mode="GRAY")
+        if cfg.max_frame_num and vidcap.frame_count > cfg.max_frame_num:
+            vidcap.frame_count = cfg.max_frame_num
+        return vidcap, None, vidcap.frame_count
 
     def run(self, *, input_video_path: Optional[str] = None,
             image_folder: Optional[str] = None, out_folder: str = "./output",
             out_name_suffix: str = "") -> dict:
         """Full CLI run; returns paths, counts and timings."""
-        from v2ce_toolbox_tpu_torch.io.video import (
-            VideoReader,
-            list_image_frames,
-            write_video,
-        )
-
         cfg = self.config
-        if (input_video_path is None) == (image_folder is None):
-            raise ValueError("give exactly one of input_video_path and image_folder")
+        vidcap, paths, n_frames = self._open(input_video_path, image_folder)
         os.makedirs(out_folder, exist_ok=True)
-        if image_folder is not None:
-            name = op.basename(op.normpath(image_folder))
-        else:
-            name = op.splitext(op.basename(input_video_path))[0]
-        output_name = f"{name}-ceil_{cfg.ceil}-fps_{cfg.fps}"
-        if out_name_suffix:
-            output_name += f"-{out_name_suffix}"
-
+        output_name = _output_name(cfg, input_video_path, image_folder, out_name_suffix)
         self.timings = {}
         t_start = time.time()
-        if image_folder is not None:
-            paths = list_image_frames(image_folder, cfg.max_frame_num)
-            voxels = self.video_to_voxels(image_paths=paths)
-            n_frames = len(paths)
-        else:
-            vidcap = VideoReader(input_video_path, color_mode="GRAY")
-            if cfg.max_frame_num and vidcap.frame_count > cfg.max_frame_num:
-                vidcap.frame_count = cfg.max_frame_num
-            voxels = self.video_to_voxels(vidcap=vidcap)
-            n_frames = vidcap.frame_count
-            vidcap.close()
+        try:
+            voxels = self.video_to_voxels(vidcap=vidcap, image_paths=paths)
+        finally:
+            if vidcap is not None:
+                vidcap.close()
 
         t_, c_, h_, w_ = voxels.shape
         result = {"voxels_shape": (t_, h_, w_, c_)}   # logical, channels-last
@@ -376,18 +574,66 @@ class V2cePipeline:
                 voxels, ceil=float(cfg.ceil),
                 upper_bound_percentile=cfg.upper_bound_percentile,
                 keep_polarity=cfg.vis_keep_polarity)
-            vis_color = "rgb" if cfg.vis_keep_polarity else "gray"
-            ef_path = op.join(out_folder,
-                              f"{cfg.infer_type}-{output_name}-pred_ef_{vis_color}.mp4")
-            write_video(frames, ef_path, cfg.fps)
-            result["event_frame_video"] = ef_path
-
+            self._write_preview(frames, out_folder, output_name, result)
         event_stream = self.voxels_to_event_stream(voxels)
-        ev_path = op.join(out_folder, f"{output_name}-events.npz")
-        np.savez(ev_path, event_stream=event_stream)
-        result.update(event_stream_path=ev_path, num_events=int(event_stream.shape[0]),
-                      num_frames=n_frames, wall_time_s=time.time() - t_start,
-                      timings=dict(self.timings))
-        logger.info("%d frames -> %d events in %.2fs", n_frames,
-                    result["num_events"], result["wall_time_s"])
-        return result
+        return self._finish(event_stream, out_folder, output_name, result, n_frames,
+                            t_start)
+
+    def run_streaming(self, *, input_video_path: Optional[str] = None,
+                      image_folder: Optional[str] = None, out_folder: str = "./output",
+                      out_name_suffix: str = "") -> dict:
+        """Streaming CLI run: each seq_len-frame window flows decode ->
+        forward -> sampler -> wire flatten -> host decode, and only the
+        per-polarity event-frame sums stay on the device for the preview's
+        global percentile bound. Memory is O(window), not O(video).
+
+        Event totals equal run()'s (emission counts are a deterministic
+        function of the voxels; the last window re-emits only its
+        non-overlapping tail, like the window merge). Window i draws from
+        `make_draw(seed, i, device)`, so the timestamps differ from run()'s
+        in distribution only."""
+        cfg = self.config
+        vidcap, paths, frame_count = self._open(input_video_path, image_folder)
+        os.makedirs(out_folder, exist_ok=True)
+        output_name = _output_name(cfg, input_video_path, image_folder, out_name_suffix)
+        self.timings = {"stage1_s": 0.0, "stage2_s": 0.0}
+        t_start = time.time()
+        starts, mode = plan_windows(frame_count, cfg.seq_len)
+        parts: List[np.ndarray] = []
+        ef_sums: List[torch.Tensor] = []
+        h_out = w_out = None
+        try:
+            for i, start in enumerate(starts):
+                t0 = time.perf_counter()
+                vox = self._forward(self._read_window(start, vidcap, paths)[None])[0]
+                _sync(self.device)
+                t1 = time.perf_counter()
+                h_out, w_out = vox.shape[-2:]
+                v = vox.reshape(cfg.seq_len, 2, vox.shape[1] // 2, h_out, w_out).contiguous()
+                skip = (cfg.seq_len - mode) if (i == len(starts) - 1 and mode) else 0
+                if cfg.write_event_frame_video:
+                    ef_sums.append(v.sum(dim=2)[skip:])
+                offsets64 = ((np.arange(cfg.seq_len) + int(start)) / cfg.fps
+                             * 1e6).astype(np.int64)
+                base_us = int(offsets64[0])          # window-rebased: any length
+                rel_t = torch.from_numpy((offsets64 - base_us).astype(np.int32)).to(v.device)
+                parts.append(chunk_events(v, make_draw(self.seed, i, v.device), rel_t,
+                                          cfg.seq_len, cfg.sampler, cfg.fps,
+                                          skip_lead=skip, base_us=base_us))
+                self.timings["stage1_s"] += t1 - t0
+                self.timings["stage2_s"] += time.perf_counter() - t1
+        finally:
+            if vidcap is not None:
+                vidcap.close()
+        self.timings.update(windows=len(starts), chunks=len(starts))
+
+        result = {"voxels_shape": (frame_count - 1, h_out, w_out, cfg.model.out_channels)}
+        if cfg.write_event_frame_video:
+            frames = render_event_frames_from_sums(
+                torch.cat(ef_sums, dim=0), ceil=float(cfg.ceil),
+                upper_bound_percentile=cfg.upper_bound_percentile,
+                keep_polarity=cfg.vis_keep_polarity)
+            self._write_preview(frames, out_folder, output_name, result)
+        event_stream = np.concatenate(parts) if parts else np.zeros(0, EVENT_DTYPE)
+        return self._finish(event_stream, out_folder, output_name, result, frame_count,
+                            t_start, tag="[streaming] ")

@@ -22,7 +22,16 @@ def render_event_frames_cmajor(voxels: torch.Tensor, *, ceil: float = 10.0,
                                keep_polarity: bool = True) -> np.ndarray:
     """Channel-major (T, 20, H, W) voxels -> (T, H, W, 3) uint8 frames."""
     t, c, h, w = voxels.shape
-    ef2 = voxels.reshape(t, 2, c // 2, h, w).sum(dim=2)
+    return render_event_frames_from_sums(
+        voxels.reshape(t, 2, c // 2, h, w).sum(dim=2), ceil=ceil,
+        upper_bound_percentile=upper_bound_percentile, keep_polarity=keep_polarity)
+
+
+def render_event_frames_from_sums(ef2: torch.Tensor, *, ceil: float = 10.0,
+                                  upper_bound_percentile: int = 98,
+                                  keep_polarity: bool = True) -> np.ndarray:
+    """Per-polarity event-frame sums (T, 2, H, W) -> (T, H, W, 3) uint8
+    frames: the streaming driver's path, which keeps only these sums."""
     out = _finish_render(ef2, ceil=float(ceil),
                          upper_bound_percentile=upper_bound_percentile,
                          keep_polarity=keep_polarity)
