@@ -36,10 +36,29 @@ Phases, any failure exits non-zero before the result lines:
      output relative to its largest value;
   7. stage 2 alone on the dense synthetic voxels: the kernel path on the
      card against the plain path on the CPU with the same draws,
-     byte-identical decoded events, and events > 0.
+     byte-identical decoded events, and events > 0;
+  8. the research stage-1 convs, K9 conv3d_3x3x3 and K10
+     fused_up_concat_conv, against their plain twins on the calls one
+     16-frame 260x346 window of the full-width research model makes (14 K9
+     calls of 7 shapes, 2 K10 calls), in bf16 and f32 (TF32 off), within
+     CONV_REL_TOL (by output dtype) of the twin relative to its largest
+     output; per shape the
+     median CUDA-event ms of kernel, twin and the cuDNN call computing the
+     same function (`library_ms`), and the bound (FLOPs at PEAK_FLOPS or
+     bytes at the HBM rate, the larger);
+  9. the research configuration end to end (V2cePipeline, bf16,
+     RESEARCH), counted: K9 must launch 14 and K10 2 times per window;
+     then the product `--bf16` CLI run, counted;
+ 10. stage 1 of the research model against the product model on the card:
+     in f32 within STAGE1_REL_TOL (the phase-6 window and the clip's first
+     window), and in bf16 through the bf16 fidelity gate of
+     `tests/test_model_rewrites.py:119-163` on the clip's first window
+     (max error <= 0.05 scale + 1e-3, BinaryMatch at 0.01 >= 0.995, LDATI
+     event count ratio within 0.5% on the same draws, timestamp KS <= 0.02).
 The line before the last is a JSON object of per-kernel results (its
 `launches` is the count of the kernel's own path, KERNEL_PATH, and
-`launches_by_path` every counted path's count); the last is
+`launches_by_path` every counted path's count; K9's and K10's times are
+sums over one window's calls, in bf16); the last is
 {"ok": true, "device": {...}}.
 """
 
@@ -58,6 +77,17 @@ N_TIMED = 15
 N_CLI = 3
 STAGE1_REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM device memory
+# H100 SXM dense peaks: bf16 tensor cores, and f32 on the CUDA cores (the
+# f32 convs must not round to TF32)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# K9/K10 against their twins, relative to the twin's largest output, by
+# output dtype: f32 sums run in another order (1e-5); a bf16 output may
+# land one bf16 ulp away where an f32 sum straddles a rounding boundary
+# (8e-3). K9 returns f32 in both models, K10 the compute dtype.
+CONV_REL_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+RESEARCH = dict(conv_impl="pallas", subpixel_decoder=True, subpixel_impl="pallas",
+                subpixel_blocks=2)
+CONV_PER_WINDOW = {"conv3d_3x3x3": 14, "fused_up_concat_conv": 2}
 FPS, F, H, W = 30, 24, 260, 346            # the stage-2 chunk of the main path
 PANO_W = 600
 DEVICE = "cuda"
@@ -74,17 +104,24 @@ KERNELS = {
                  "v2ce_toolbox_tpu/ops/gen_pallas.py:79"),
     "append_rows": ("v2ce_toolbox_tpu_torch/csrc/merge_rows.cu",
                     "v2ce_toolbox_tpu/ops/compact_pallas.py:361"),
+    "conv3d_3x3x3": ("v2ce_toolbox_tpu_torch/csrc/conv3d.cu",
+                     "v2ce_toolbox_tpu/ops/conv3d_pallas.py:81"),
+    "fused_up_concat_conv": ("v2ce_toolbox_tpu_torch/csrc/decoder_conv.cu",
+                             "v2ce_toolbox_tpu/ops/decoder_pallas.py:177"),
 }
 # the phase-3 case whose time stands in the kernels line
 TIMED_CASE = {"gen_compact": "gen_compact[slope]", "compact_rows": "compact_rows",
               "merge_sorted_rows": "merge_sorted_rows", "gen_pack": "gen_pack[slope]",
-              "append_rows": "append_rows"}
+              "append_rows": "append_rows", "conv3d_3x3x3": "conv3d_3x3x3[bfloat16]",
+              "fused_up_concat_conv": "fused_up_concat_conv[bfloat16]"}
 CENTER_PATH = ("gen_compact", "compact_rows", "merge_sorted_rows")
+RESEARCH_PATH = CENTER_PATH + tuple(CONV_PER_WINDOW)
 # kernel -> the counted path whose count stands as its `launches` in the
 # kernels line: the center CLI run, or the mode that reaches the kernel
 KERNEL_PATH = {"gen_compact": "center CLI", "compact_rows": "center CLI",
                "merge_sorted_rows": "center CLI", "gen_pack": "mode gen_pack",
-               "append_rows": "mode bidirectional"}
+               "append_rows": "mode bidirectional", "conv3d_3x3x3": "research V2cePipeline",
+               "fused_up_concat_conv": "research V2cePipeline"}
 # stage-2 mode -> (SamplerConfig overrides, its CLI flags or None where
 # v2ce.py has no flag for it, the kernels its path launches)
 MODES = {
@@ -317,6 +354,144 @@ def kernels_phase(torch, np, dev):
     return results, errs, dense
 
 
+def time_one(fn, torch):
+    """Median ms of fn over N_TIMED runs after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    return statistics.median(cuda_ms(fn, torch) for _ in range(N_TIMED))
+
+
+def conv_bound(flops, moved, dname):
+    """(bound ms, what bounds it): the larger of the FLOPs at the card's
+    peak for the type and the bytes at the HBM rate."""
+    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rel_err(a, b):
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def conv_kernels_phase(torch, np, dev):
+    """Phase 8: K9 and K10 against their twins on the calls of one 16-frame
+    260x346 window of the full-width research model, bf16 and f32. Returns
+    ({"<kernel>[<dtype>]": per-window sums of ms, plain_ms, library_ms,
+    bound_ms and bound_by}, {kernel: max abs err in bf16})."""
+    import torch.nn.functional as F
+
+    from v2ce_toolbox_tpu_torch.config import ModelConfig
+    from v2ce_toolbox_tpu_torch.models import V2ce3d, layers
+    from v2ce_toolbox_tpu_torch.ops import conv3d, decoder
+    from v2ce_toolbox_tpu_torch.utils.weights import init_weights
+
+    x = torch.from_numpy(np.random.RandomState(0).randn(1, 16, H, W, 2)
+                         .astype(np.float32)).to(dev)
+    results, errs = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        model = V2ce3d(ModelConfig(compute_dtype=dtype, **RESEARCH))
+        init_weights(model, 0)
+        model.to(dev).eval()
+        k9, k10, k10_in = [], [], []
+        with record_calls([layers], "conv3d_3x3x3", k9), \
+                record_calls([decoder], "fused_conv_even", k10), \
+                record_calls([layers], "fused_up_concat_conv", k10_in), torch.no_grad():
+            model(x)
+        torch.cuda.synchronize()
+        del model
+        if len(k9) != CONV_PER_WINDOW["conv3d_3x3x3"] or len(k10) != 2 or len(k10_in) != 2:
+            raise AssertionError(f"the research model made {len(k9)} K9 and {len(k10)} K10 "
+                                 "calls on one window")
+        # K9: the distinct call shapes, each with its count in the window
+        shapes = {}
+        for a, k in k9:
+            key = (tuple(a[0].shape), tuple(a[1].shape))
+            shapes.setdefault(key, [a, k, 0])[2] += 1
+        cases = [("conv3d_3x3x3", conv3d.conv3d_3x3x3, conv3d._conv3d_3x3x3_torch, a, k, n,
+                  None) for a, k, n in shapes.values()]
+        # K10: each call with the block's call of fused_up_concat_conv it serves
+        cases += [("fused_up_concat_conv", decoder.fused_conv_even,
+                   decoder._fused_conv_even_torch, a, k, 1, block_call)
+                  for (a, k), block_call in zip(k10, k10_in)]
+        for name, kernel, plain, a, k, n, block_call in cases:
+            with torch.no_grad():
+                got, want = kernel(*a, **k), plain(*a, **k)
+                torch.cuda.synchronize()
+                rel = rel_err(got, want)
+                abs_err = float((got.float() - want.float()).abs().max())
+                if name == "conv3d_3x3x3":
+                    xin, kin = a
+                    flops = 2 * xin.numel() * kin.shape[4] * 27
+                    moved = nbytes([xin, kin, got])
+                    xl = xin.permute(0, 4, 1, 2, 3)          # channels-last NCDHW
+                    wl = kin.permute(4, 3, 0, 1, 2).contiguous()
+                    label = f"{tuple(xin.shape)} x {tuple(kin.shape)}"
+                else:
+                    fa, fkw = block_call
+                    coarse, skip, kern = fa[:3]
+                    proj = fa[3] if len(fa) > 3 else None
+                    b, l, hc, wc, cu = coarse.shape
+                    hf, wf, cs = skip.shape[2:]
+                    co = kern.shape[4]
+                    # the function's work: the direct conv over the fine
+                    # concat, and the 1x1 projection when it is fused
+                    flops = 2 * b * l * hf * wf * (cu + cs) * co * (27 + (proj is not None))
+                    moved = (nbytes([coarse, skip, kern, proj])
+                             + b * l * hf * wf * co * got.element_size() * (1 + (proj is not None)))
+                    # the library's one call on the materialized concat (made
+                    # outside the timing): conv, and the projection as a
+                    # centre-tap block of the same weights
+                    up = coarse.repeat_interleave(2, 2)[:, :, :hf].repeat_interleave(2, 3)[:, :, :, :wf]
+                    xl = torch.cat([up, skip], -1).permute(0, 4, 1, 2, 3).contiguous(
+                        memory_format=torch.channels_last_3d)
+                    wl = kern.permute(4, 3, 0, 1, 2)
+                    if proj is not None:
+                        wp = torch.zeros_like(wl)
+                        wp[:, :, 1, 1, 1] = proj[0, 0, 0].t()
+                        wl = torch.cat([wl, wp], 0)
+                    wl = wl.contiguous()
+                    if dtype == torch.float32:
+                        # the whole fused function (kernel + fold + odd-size
+                        # corrections) against the direct conv
+                        full = layers.fused_up_concat_conv(*fa, **fkw)
+                        full = full[0] if isinstance(full, tuple) else full
+                        direct = F.conv3d(xl, wl[:co], padding=1).permute(0, 2, 3, 4, 1)
+                    label = (f"coarse {tuple(coarse.shape)} skip {tuple(skip.shape)} Co {co}"
+                             f"{' + projection' if proj is not None else ''}")
+                    if dtype == torch.float32 and rel_err(full, direct) > STAGE1_REL_TOL:
+                        raise AssertionError(f"K10 {label}: the fused conv is "
+                                             f"{rel_err(full, direct):.3e} from the direct conv")
+                tol = CONV_REL_TOL[str(got.dtype).split(".")[1]]
+                if not (torch.isfinite(got.float()).all() and rel <= tol):
+                    raise AssertionError(f"{name} {dname} {label}: {rel:.3e} from its twin "
+                                         f"(limit {tol:g})")
+                tk, tp = time_pair(lambda: kernel(*a, **k), lambda: plain(*a, **k), torch)
+                tl = time_one(lambda: F.conv3d(xl, wl, padding=1), torch)
+            tb, by = conv_bound(flops, moved, dname)
+            log(f"[conv] {name} {dname} {label} x{n}: rel err {rel:.3e} (limit {tol:g}), abs err "
+                f"{abs_err:.3e}; kernel {tk:.4f} ms ({flops / tk / 1e9:.1f} TFLOP/s), plain "
+                f"{tp:.4f} ms, cuDNN {tl:.4f} ms, bound {tb:.4f} ms ({by})")
+            r = results.setdefault(f"{name}[{dname}]", dict(ms=0.0, plain_ms=0.0,
+                                                             library_ms=0.0, bound_ms=0.0,
+                                                             t_ops=0.0, t_bytes=0.0))
+            r["ms"] += n * tk
+            r["plain_ms"] += n * tp
+            r["library_ms"] += n * tl
+            r["bound_ms"] += n * tb
+            r["t_ops" if by == "operations" else "t_bytes"] += n * tb
+            if dtype == torch.bfloat16:
+                errs[name] = max(errs.get(name, 0.0), abs_err)
+        del k9, k10, k10_in, cases, shapes
+        torch.cuda.empty_cache()
+    for label, r in results.items():
+        r["bound_by"] = "operations" if r.pop("t_ops") >= r.pop("t_bytes") else "bytes"
+        log(f"[conv] {label} per 16-frame window: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return results, errs
+
+
 def make_clip(path, n, h, w):
     import cv2
 
@@ -450,6 +625,107 @@ def modes_phase(torch, np, counted, dense, smi):
             f"{cpu_s:.1f} s); {how}, median of 3: {cli_line(r)} [{smi}]")
 
 
+def research_phase(torch, np, counted, smi):
+    """Phase 9: the research configuration through V2cePipeline on the
+    center clip, counted (K9 14 and K10 2 launches per window), then the
+    product --bf16 CLI run, counted."""
+    from v2ce_toolbox_tpu_torch import cli
+    from v2ce_toolbox_tpu_torch.config import ModelConfig, PipelineConfig
+    from v2ce_toolbox_tpu_torch.pipeline import driver
+
+    clip = os.path.join(OUT, "clip.mp4")
+    absent = os.path.join(OUT, "absent.pt")
+    model = ModelConfig(compute_dtype=torch.bfloat16, **RESEARCH)
+    pipe = driver.V2cePipeline(PipelineConfig(height=H, width=W, model=model),
+                               model_path=absent, device=DEVICE, seed=0)
+    run = lambda: pipe.run(input_video_path=clip, out_folder=OUT)  # noqa: E731
+    run()                                            # warm-up
+    path = "research V2cePipeline"
+    runs = [counted(path, RESEARCH_PATH, run, f"bf16, {RESEARCH}")]
+    counts, windows = counted.by_path[path], runs[0]["timings"]["windows"]
+    for name, per_window in CONV_PER_WINDOW.items():
+        if counts[name] != per_window * windows:
+            raise AssertionError(f"{path}: {name} launched {counts[name]} times in "
+                                 f"{windows} windows, not {per_window} per window")
+    runs += [run() for _ in range(N_CLI - 1)]
+    for r in runs:
+        check_npz(r, np, W, path)
+    r = sorted(runs, key=lambda r: r["wall_time_s"])[N_CLI // 2]
+    log(f"[research] {path} (bf16), median of {N_CLI}: {cli_line(r)} [{smi}]")
+
+    argv = ["-i", clip, "-o", OUT, "-m", absent, "--device", DEVICE, "--seed", "0",
+            "--height", str(H), "--width", str(W), "-l", "warning", "--bf16"]
+    cli.main(argv)                                   # warm-up
+    runs = [counted("bf16 CLI", CENTER_PATH, lambda: cli.main(argv), "--bf16")]
+    runs += [cli.main(argv) for _ in range(N_CLI - 1)]
+    for r in runs:
+        check_npz(r, np, W, "--bf16")
+    if len({r["num_events"] for r in runs}) != 1:
+        raise AssertionError("repeated --bf16 runs gave different event counts")
+    r = sorted(runs, key=lambda r: r["wall_time_s"])[N_CLI // 2]
+    log(f"[research] --bf16 CLI, median of {N_CLI}: {cli_line(r)} [{smi}]")
+
+
+def research_stage1_phase(torch, np, dev, product, x):
+    """Phase 10: the research model against the product model on the card,
+    the same weights: f32 within STAGE1_REL_TOL on the phase-6 window and
+    the clip's first window; bf16 through the fidelity gate on the clip's
+    first window."""
+    from v2ce_toolbox_tpu_torch.config import ModelConfig, SamplerConfig
+    from v2ce_toolbox_tpu_torch.io.video import VideoReader
+    from v2ce_toolbox_tpu_torch.models import V2ce3d
+    from v2ce_toolbox_tpu_torch.ops import ldati
+    from v2ce_toolbox_tpu_torch.pipeline import driver
+    from v2ce_toolbox_tpu_torch.pipeline.infer import make_forward_fn
+    from v2ce_toolbox_tpu_torch.pipeline.preprocess import resize_frames
+
+    def research(dtype):
+        m = V2ce3d(ModelConfig(compute_dtype=dtype, **RESEARCH))
+        m.load_state_dict(product.state_dict())
+        return m.to(dev).eval()
+
+    r32, r16 = research(torch.float32), research(torch.bfloat16)
+    raw = VideoReader(os.path.join(OUT, "clip.mp4"), color_mode="GRAY") \
+        .read_frames_at_indices(range(17))
+    frames = torch.from_numpy(resize_frames(raw, H)[None]).to(dev)
+    with torch.no_grad():
+        for what, inp in [("(1, 16, 64, 96, 2) window", lambda m: m(x)),
+                          ("clip window", lambda m: make_forward_fn(m, width=W)(frames))]:
+            want, got = inp(product), inp(r32)
+            rel = rel_err(got, want)
+            log(f"[stage1] research f32 vs product f32, {what}: relative to max |out| "
+                f"{rel:.3e} (limit {STAGE1_REL_TOL:g})")
+            if not torch.isfinite(got).all() or float(want.abs().max()) == 0 \
+                    or rel > STAGE1_REL_TOL:
+                raise AssertionError(f"the f32 research model disagrees with the product "
+                                     f"model on the {what}")
+        y32 = make_forward_fn(product, width=W)(frames)
+        y16 = make_forward_fn(r16, width=W)(frames)
+    err, scale = float((y16 - y32).abs().max()), float(y32.abs().max())
+    match = float(((y32 > 0.01) == (y16 > 0.01)).float().mean())
+
+    def events(y):
+        v = y.permute(0, 1, 4, 2, 3).reshape(16, 2, 10, H, W).contiguous()
+        offsets = torch.from_numpy((np.arange(16) / FPS * 1e6).astype(np.int32)).to(dev)
+        return driver.chunk_events(v, ldati.make_draw(7, 0, dev), offsets, 16,
+                                   SamplerConfig(), FPS)
+
+    e32, e16 = events(y32), events(y16)
+    ratio = len(e16) / max(len(e32), 1)
+    a = np.sort(e32["timestamp"].astype(np.float64))
+    b = np.sort(e16["timestamp"].astype(np.float64))
+    grid = np.union1d(a, b)
+    ks = float(np.abs(np.searchsorted(a, grid, side="right") / max(len(a), 1)
+                      - np.searchsorted(b, grid, side="right") / max(len(b), 1)).max())
+    log(f"[stage1] research bf16 vs product f32, clip window: max err {err:.4e} (limit "
+        f"{0.05 * scale + 1e-3:.4e}), BinaryMatch {match:.6f} (>= 0.995), events "
+        f"{len(e16)} / {len(e32)} = {ratio:.6f} (within 0.005 of 1), timestamp KS {ks:.6f} "
+        "(<= 0.02)")
+    if not (len(e32) > 0 and err <= 0.05 * scale + 1e-3 and match >= 0.995
+            and abs(ratio - 1) <= 0.005 and ks <= 0.02):
+        raise AssertionError("the bf16 research model fails the bf16 fidelity gate")
+
+
 def main():
     import torch
 
@@ -488,12 +764,21 @@ def main():
     results, errs, dense = kernels_phase(torch, np, dev)
     dense_v, dense_events, dense_draw, offsets = dense
 
+    # 8. (first, while the card holds nothing else) K9 and K10 against their
+    # twins at the research model's calls
+    conv_results, conv_errs = conv_kernels_phase(torch, np, dev)
+    results.update(conv_results)
+    errs.update(conv_errs)
+
     # 4. the CLI paths, counted
     counted = Counted(torch, ops)
     cli_phase(torch, np, counted, smi)
 
     # 5. the other stage-2 modes, counted
     modes_phase(torch, np, counted, dense, smi)
+
+    # 9. the research configuration and --bf16, counted
+    research_phase(torch, np, counted, smi)
     for name in KERNELS:
         if counted.by_path[KERNEL_PATH[name]][name] <= 0:
             raise AssertionError(f"{KERNEL_PATH[name]} never launched {name}")
@@ -517,6 +802,9 @@ def main():
             or float(ref.abs().max()) == 0 or rel > STAGE1_REL_TOL):
         raise AssertionError("stage 1 on the card disagrees with the CPU")
 
+    # 10. the research model against the product model on the card
+    research_stage1_phase(torch, np, dev, model, x.to(dev))
+
     # 7. stage 2 alone: kernel path (card) against the plain path (CPU)
     t0 = time.time()
     plain = driver._fetch_chunk_events_fused(
@@ -537,7 +825,8 @@ def main():
                                              if c[name]},
                         "max_abs_err": errs[name],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": "bytes", "library_ms": None})
+                        "bound_by": r.get("bound_by", "bytes"),
+                        "library_ms": r.get("library_ms")})
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -22,6 +22,8 @@ MODULES = [
     "v2ce_toolbox_tpu_torch.ops._cuda",
     "v2ce_toolbox_tpu_torch.ops.bitpack",
     "v2ce_toolbox_tpu_torch.ops.compact",
+    "v2ce_toolbox_tpu_torch.ops.conv3d",
+    "v2ce_toolbox_tpu_torch.ops.decoder",
     "v2ce_toolbox_tpu_torch.ops.gen",
     "v2ce_toolbox_tpu_torch.ops.ldati",
     "v2ce_toolbox_tpu_torch.pipeline.driver",

@@ -1,7 +1,10 @@
 """The port's CUDA kernels (K1 gen_compact, K2 compact_rows, K3
 merge_sorted_rows, K4 gen_pack, K5 append_rows) against their plain-torch
 twins, at the shapes of the stage-2 paths (24-frame chunks of 260x346
-voxels).
+voxels), and the research stage-1 convs (K9 conv3d_3x3x3, K10
+fused_up_concat_conv) against theirs: f32 outputs within 1e-5 of the twin
+relative to its largest value (sums in another order), bf16 outputs within
+8e-3 (one bf16 ulp where an f32 sum straddles a rounding boundary).
 
 This file imports no jax, so it also runs where jax is not installed:
 
@@ -14,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from v2ce_toolbox_tpu_torch.ops import compact, gen
+from v2ce_toolbox_tpu_torch.ops import compact, conv3d, decoder, gen
 
 INVALID = compact.INVALID
 
@@ -170,3 +173,63 @@ def test_append_rows_equals_twin_on_card(cap, density):
                   compact.append_rows_torch(k, [p], cap=cap, chunk=8192))
     _assert_equal(compact.append_rows(k, (), cap=cap, chunk=8192),
                   compact.append_rows_torch(k, (), cap=cap, chunk=8192))
+
+
+CONV_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+CONV_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+               (torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.fixture
+def no_tf32():
+    """The twins' cuDNN f32 convs in full f32 (PyTorch lets cuDNN use TF32
+    by default)."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = before
+
+
+def _assert_conv_close(got, want, out_dtype):
+    assert got.dtype == want.dtype == out_dtype and got.shape == want.shape
+    err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    assert torch.isfinite(got.float()).all() and err <= CONV_TOL[out_dtype], err
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,out_dtype", CONV_DTYPES)
+@pytest.mark.parametrize("b,l,h,w,c,co", [
+    (1, 4, 6, 16, 16, 16), (2, 3, 5, 13, 24, 40),
+    (1, 4, 7, 9, 20, 12),                    # channels padded to the 8-wide vectors
+    (1, 16, 17, 22, 512, 512), (1, 16, 33, 44, 768, 256)])
+def test_conv3d_equals_twin_on_card(b, l, h, w, c, co, dtype, out_dtype, no_tf32):
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(c * co)
+    x = torch.randn((b, l, h, w, c), generator=g, device=dev).to(dtype)
+    k = (torch.randn((3, 3, 3, c, co), generator=g, device=dev) / (27 * c) ** 0.5).to(dtype)
+    _assert_conv_close(conv3d.conv3d_3x3x3(x, k, out_dtype),
+                       conv3d._conv3d_3x3x3_torch(x, k, out_dtype), out_dtype)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,out_dtype", CONV_DTYPES)
+@pytest.mark.parametrize("hc,wc,k,n", [(5, 7, 24, 8), (9, 13, 20, 12),
+                                       (65, 87, 384, 128), (130, 173, 192, 128)])
+def test_fused_conv_even_equals_twin_on_card(hc, wc, k, n, dtype, out_dtype):
+    # the folded input (B, L, hc, wc, Cu + 4 Cs) and weights; the last two
+    # are decoder_2 and decoder_3 of the full-width model
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(k * n)
+    x = torch.randn((1, 4, hc, wc, k), generator=g, device=dev).to(dtype)
+    kf = (torch.randn((2, 3, 2, 3, k, n), generator=g, device=dev) / (18 * k) ** 0.5).to(dtype)
+    _assert_conv_close(decoder.fused_conv_even(x, kf, out_dtype),
+                       decoder._fused_conv_even_torch(x, kf, out_dtype), out_dtype)
+
+
+def test_conv_wrappers_never_take_the_twin_off_cpu():
+    x = torch.empty((1, 4, 6, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        conv3d.conv3d_3x3x3(x, torch.empty((3, 3, 3, 16, 16), device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        decoder.fused_conv_even(x, torch.empty((2, 3, 2, 3, 16, 8), device="meta"),
+                                torch.float32)

@@ -1,7 +1,7 @@
 """Stage 1 of the port against the JAX V2ce3d: weight conversion both
 ways, the eval forward (f32, within rtol 1e-4 / atol 1e-5: the two
-frameworks sum the conv products in other orders), and the pair
-normalization with the center crop."""
+frameworks sum the conv products in other orders), the pair
+normalization with the center crop, and the model's backend settings."""
 
 import numpy as np
 import pytest
@@ -94,3 +94,33 @@ def test_normalize_pairs_and_center_crop_match():
     got = center_crop(normalize_pairs(torch.from_numpy(frames)), 12)
     assert got.shape == (2, 4, 6, 12, 2)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(conv_impl="fold"), dict(conv_impl="d2"), dict(conv_impl="d2s"),
+    dict(conv_impl="wpack"), dict(conv_impl="ko:decoder"),
+    dict(subpixel_decoder=True, subpixel_impl="split"),
+    dict(subpixel_decoder=True, subpixel_impl="wfold"),
+    dict(subpixel_decoder=True)])                       # the default 'pfold'
+def test_unported_backends_raise_at_construction(kw):
+    with pytest.raises(NotImplementedError, match="Not ported"):
+        V2ce3d(ModelConfig(**SMALL, **kw))
+
+
+@pytest.mark.parametrize("kw", [dict(conv_impl="cudnn"),
+                                dict(subpixel_decoder=True, subpixel_impl="fused")])
+def test_unknown_backends_raise(kw):
+    with pytest.raises(ValueError, match="unknown"):
+        V2ce3d(ModelConfig(**SMALL, **kw))
+
+
+def test_full_width_subpixel_on_every_decoder_hits_the_co_limit():
+    # subpixel_blocks=-1 at ModelConfig() widths sends decoder_0 (Co = 256)
+    # to K10, whose Co <= 64 assert fires as the JAX package's does; the
+    # research configuration keeps it to the last two decoders (Co 64, 32)
+    cfg = dict(conv_impl="pallas", subpixel_decoder=True, subpixel_impl="pallas")
+    model = V2ce3d(ModelConfig(**cfg)).eval()
+    assert V2ce3d(ModelConfig(**cfg, subpixel_blocks=2)).UNet.decoders[2].__class__.__name__ \
+        == "DecoderResidualBlock3D"
+    with torch.no_grad(), pytest.raises(AssertionError, match="Co <= 64"):
+        model(torch.zeros(1, 1, 16, 16, 2))

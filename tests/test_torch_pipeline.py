@@ -81,10 +81,9 @@ def test_run_writes_event_stream(clip, pipeline, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    # bf16 stage 1 is not ported; nor is the v2 sampler core, which the
-    # JAX package runs where the packed key cannot hold the voxel ids (a
-    # 10 fps bin, or a pano stream wider than 1008 px at 30 fps)
-    ["--bf16"], ["--bf16", "--streaming"], ["--bf16", "-t", "pano"],
+    # the v2 sampler core is not ported, which the JAX package runs where
+    # the packed key cannot hold the voxel ids (a 10 fps bin, or a pano
+    # stream wider than 1008 px at 30 fps)
     ["--fps", "10"], ["-t", "pano", "--height", "768"]])
 def test_cli_uncovered_flags_raise(clip, flag, tmp_path):
     from v2ce_toolbox_tpu_torch import cli
@@ -92,6 +91,38 @@ def test_cli_uncovered_flags_raise(clip, flag, tmp_path):
     with pytest.raises(NotImplementedError):
         cli.main(["-i", clip, "-o", str(tmp_path), "--device", "cpu",
                   "-m", str(tmp_path / "absent.pt"), *flag])
+
+
+@pytest.mark.parametrize("flag,infer_type,method", [
+    (["--bf16"], "center", "run"), (["--bf16", "--streaming"], "center", "run_streaming"),
+    (["--bf16", "-t", "pano"], "pano", "run")])
+def test_cli_bf16_reaches_the_pipeline(clip, flag, infer_type, method, tmp_path, monkeypatch):
+    # --bf16 gives the pipeline a bfloat16 stage 1 (v2ce.py:106-107); the
+    # pipeline itself is recorded, not run: the full-width model is too
+    # slow for the CPU (tests/test_torch_research_bf16.py runs bf16 stage 1)
+    from v2ce_toolbox_tpu_torch import cli
+    from v2ce_toolbox_tpu_torch.pipeline import driver
+
+    seen = {}
+
+    class Recorder:
+        def __init__(self, config, **kwargs):
+            seen["config"] = config
+
+        def run(self, **kwargs):
+            seen["method"] = "run"
+            return {}
+
+        def run_streaming(self, **kwargs):
+            seen["method"] = "run_streaming"
+            return {}
+
+    monkeypatch.setattr(driver, "V2cePipeline", Recorder)
+    cli.main(["-i", clip, "-o", str(tmp_path), "--device", "cpu",
+              "-m", str(tmp_path / "absent.pt"), *flag])
+    cfg = seen["config"]
+    assert cfg.model.compute_dtype == torch.bfloat16 and cfg.model.conv_impl == "xla"
+    assert cfg.infer_type == infer_type and seen["method"] == method
 
 
 @pytest.mark.parametrize("inputs", [[], ["-i", "missing.mp4"], "both"])

@@ -6,8 +6,8 @@ Same flag surface as the JAX package's `v2ce.py`, plus --device and
     python -m v2ce_toolbox_tpu_torch.cli -i input.mp4 -t center
 
 Writes an event-frame preview mp4 and a `<name>-events.npz` structured
-event stream. Every flag runs except --bf16, which raises
-NotImplementedError (ROADMAP, queue 1).
+event stream. --bf16 runs stage 1 in bfloat16 (conv inputs and the
+activations between layers; f32 sums and output).
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--streaming", type=SBool, default=False, nargs="?", const=True,
                    help="run stage 1 and stage 2 per window; memory O(window)")
     p.add_argument("--bf16", type=SBool, default=False, nargs="?", const=True,
-                   help="bf16 stage 1 (not ported yet)")
+                   help="bf16 stage 1 (activations and conv inputs; f32 sums)")
     p.add_argument("--stage2_strategy", type=str, default="slope",
                    choices=["slope", "random", "none"],
                    help="LDATI additional-events strategy")
@@ -86,11 +86,10 @@ def main(argv=None):
     for path in (args.image_folder, args.input_video_path):
         if path is not None and not os.path.exists(path):
             parser.error(f"{path} does not exist")
-    if args.bf16:
-        raise NotImplementedError("--bf16 is not ported yet (ROADMAP, queue 1: bf16 "
-                                  "stage 1)")
 
-    from v2ce_toolbox_tpu_torch.config import PipelineConfig, SamplerConfig
+    import torch
+
+    from v2ce_toolbox_tpu_torch.config import ModelConfig, PipelineConfig, SamplerConfig
     from v2ce_toolbox_tpu_torch.pipeline.driver import V2cePipeline
 
     config = PipelineConfig(
@@ -106,6 +105,7 @@ def main(argv=None):
         vis_keep_polarity=args.vis_keep_polarity,
         stage2_batch_size=args.stage2_batch_size,
         write_event_frame_video=args.write_event_frame_video,
+        model=ModelConfig(compute_dtype=torch.bfloat16 if args.bf16 else torch.float32),
         sampler=SamplerConfig(
             fps=args.fps,
             additional_events_strategy=args.stage2_strategy,

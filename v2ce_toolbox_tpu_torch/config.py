@@ -1,8 +1,9 @@
-"""Configuration dataclasses for the V2CE pipeline (product fields only).
+"""Configuration dataclasses for the V2CE pipeline.
 
-Same field names and defaults as `v2ce_toolbox_tpu/config.py`, minus the
-TPU-only knobs of the stage-1 model (conv backends, sub-pixel decoder,
-layouts, remat).
+Same field names and defaults as `v2ce_toolbox_tpu/config.py`. Of the
+stage-1 model's backend knobs the port runs conv_impl 'xla' (cuDNN) and
+'pallas' (the K9 kernel), and the sub-pixel decoder's 'pallas' form (the
+K10 kernel); the TPU-only XLA rewrites, layouts and remat are not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +24,14 @@ SEQ_LEN = 16                # frames per model window
 FRAME_MEAN = 0.153
 FRAME_STD = 0.165
 
+CONV_IMPLS = ("xla", "pallas")
+UNPORTED_CONV_IMPLS = ("fold", "d2", "d2s", "wpack")
+UNPORTED_SUBPIXEL_IMPLS = ("split", "wfold", "pfold")
+UNPORTED = ("the TPU-only XLA rewrites fold, d2, d2s, wpack and ko:* of "
+            "conv_impl, and split, wfold and pfold of subpixel_impl, stay in the "
+            "JAX package (ROADMAP, 'Not ported'); the port runs conv_impl 'xla' or "
+            "'pallas' and subpixel_impl 'pallas'")
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -37,7 +46,35 @@ class ModelConfig:
     norm: Optional[str] = "BN"
     spectral_norm: bool = True
     final_activation: str = "relu"
+    # conv inputs are cast to compute_dtype, conv outputs are f32, and the
+    # BatchNorm outputs (the activations between layers) are compute_dtype
     compute_dtype: torch.dtype = torch.float32
+    # 'pallas' routes every 3x3x3 stride-1 pad-1 conv with cin >= 16 to
+    # the K9 kernel (ops/conv3d.py); 'xla' keeps every conv on F.conv3d
+    conv_impl: str = "xla"
+    # decoder conv1 + projection over concat(nearest_up2(x), skip) on the
+    # coarse grid; only subpixel_impl 'pallas' (the K10 kernel,
+    # ops/decoder.py) is ported
+    subpixel_decoder: bool = False
+    subpixel_impl: str = "pfold"
+    subpixel_blocks: int = -1     # the last N decoder blocks; -1 = all
+
+    def check_backends(self) -> None:
+        """Raise on a backend the port does not run: NotImplementedError
+        for the JAX package's TPU-only rewrites, ValueError for names it
+        does not know either."""
+        ci = self.conv_impl
+        if ci in UNPORTED_CONV_IMPLS or ci.startswith("ko:"):
+            raise NotImplementedError(
+                f"conv_impl={ci!r} is not ported: {UNPORTED}")
+        if ci not in CONV_IMPLS:
+            raise ValueError(f"unknown conv_impl {ci!r}")
+        if self.subpixel_decoder:
+            if self.subpixel_impl in UNPORTED_SUBPIXEL_IMPLS:
+                raise NotImplementedError(
+                    f"subpixel_impl={self.subpixel_impl!r} is not ported: {UNPORTED}")
+            if self.subpixel_impl != "pallas":
+                raise ValueError(f"unknown subpixel_impl {self.subpixel_impl!r}")
 
 
 @dataclasses.dataclass(frozen=True)

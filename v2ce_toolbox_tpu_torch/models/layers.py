@@ -8,6 +8,13 @@ keys `v2ce_toolbox_tpu/utils/torch_compat.py` converts), so a released
   ResidualBlock3D:  conv1, bn1, conv2, bn2, downsample.0 (1x1x1 conv),
                     downsample.1 (BN); with spectral norm conv1/conv2 are
                     SNConv3d: module.{weight_bar,weight_u,weight_v}
+  DecoderResidualBlock3D: the same names
+
+Precision follows the JAX package: every conv casts its input and kernel
+to `compute_dtype` and returns f32 (the bias is added in f32), and each
+BatchNorm computes in f32 and returns `compute_dtype`, so the activations
+between layers are bf16 in the bf16 model. Parameters, the spectral-norm
+sigma and the BN statistics stay f32.
 """
 
 from __future__ import annotations
@@ -17,6 +24,42 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from v2ce_toolbox_tpu_torch.ops.conv3d import conv3d_3x3x3
+from v2ce_toolbox_tpu_torch.ops.decoder import fused_up_concat_conv
+
+
+def _triple(v) -> Tuple[int, int, int]:
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v, v)
+
+
+def _apply_conv(x: torch.Tensor, w: torch.Tensor, stride, padding,
+                compute_dtype: torch.dtype, conv_impl: str) -> torch.Tensor:
+    """Conv of NCDHW x by a (Co, C, kd, kh, kw) kernel, both cast to
+    compute_dtype, f32 out, no bias. conv_impl 'pallas' sends the convs
+    that the JAX package's guard sends to its Pallas kernel (3x3x3, stride
+    1, padding 1, cin >= 16; `ops/research.py:115-119`) to K9, on a
+    channels-last view; every other conv goes to F.conv3d. F.conv3d
+    returns compute_dtype, so a bf16 conv there rounds its f32 sums to
+    bf16 before the cast back, where XLA returns them in f32."""
+    if (conv_impl == "pallas" and tuple(w.shape[2:]) == (3, 3, 3)
+            and _triple(stride) == (1, 1, 1) and _triple(padding) == (1, 1, 1)
+            and x.shape[1] >= 16):
+        xc = x.to(compute_dtype).contiguous(memory_format=torch.channels_last_3d)
+        y = conv3d_3x3x3(xc.permute(0, 2, 3, 4, 1),
+                         w.to(compute_dtype).permute(2, 3, 4, 1, 0), out_dtype=torch.float32)
+        return y.permute(0, 4, 1, 2, 3)
+    return F.conv3d(x.to(compute_dtype), w.to(compute_dtype), None, stride,
+                    padding).float()
+
+
+def _bn(bn: nn.BatchNorm3d, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """BatchNorm in f32, output in compute_dtype."""
+    return bn(x.float()).to(compute_dtype)
+
+
+def _bias(b: torch.Tensor) -> torch.Tensor:
+    return b.view(1, -1, 1, 1, 1)
 
 
 def _l2normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -43,11 +86,14 @@ class SNConv3d(nn.Module):
     mode; in eval nothing mutates."""
 
     def __init__(self, cin: int, cout: int, k: int, stride=1, padding=0,
-                 bias: bool = True):
+                 bias: bool = True, compute_dtype: torch.dtype = torch.float32,
+                 conv_impl: str = "xla"):
         super().__init__()
         self.module = _SNParams(cin, cout, k, bias)
         self.stride = stride
         self.padding = padding
+        self.compute_dtype = compute_dtype
+        self.conv_impl = conv_impl
 
     def weight(self) -> torch.Tensor:
         m = self.module
@@ -62,13 +108,31 @@ class SNConv3d(nn.Module):
         return m.weight_bar / sigma
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv3d(x, self.weight(), self.module.bias, self.stride, self.padding)
+        y = _apply_conv(x, self.weight(), self.stride, self.padding,
+                        self.compute_dtype, self.conv_impl)
+        return y if self.module.bias is None else y + _bias(self.module.bias)
 
 
-def _conv(cin: int, cout: int, k: int, stride, padding, bias: bool, sn: bool):
-    if sn:
-        return SNConv3d(cin, cout, k, stride, padding, bias)
-    return nn.Conv3d(cin, cout, k, stride, padding, bias=bias)
+class Conv3d(nn.Conv3d):
+    """nn.Conv3d (same parameters) through `_apply_conv`: f32 out."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride=1, padding=0,
+                 bias: bool = True, compute_dtype: torch.dtype = torch.float32,
+                 conv_impl: str = "xla"):
+        super().__init__(cin, cout, k, stride, padding, bias=bias)
+        self.compute_dtype = compute_dtype
+        self.conv_impl = conv_impl
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = _apply_conv(x, self.weight, self.stride, self.padding,
+                        self.compute_dtype, self.conv_impl)
+        return y if self.bias is None else y + _bias(self.bias)
+
+
+def _conv(cin: int, cout: int, k: int, stride, padding, bias: bool, sn: bool,
+          compute_dtype: torch.dtype = torch.float32, conv_impl: str = "xla"):
+    cls = SNConv3d if sn else Conv3d
+    return cls(cin, cout, k, stride, padding, bias, compute_dtype, conv_impl)
 
 
 def _activation(name: Optional[str]):
@@ -90,9 +154,12 @@ class ConvLayer3D(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride=1,
                  padding: int = 0, activation: Optional[str] = "LeakyReLU",
-                 norm: Optional[str] = None, sn: bool = False):
+                 norm: Optional[str] = None, sn: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv3d = _conv(cin, cout, kernel_size, stride, padding, norm != "BN", sn)
+        self.compute_dtype = compute_dtype
+        self.conv3d = _conv(cin, cout, kernel_size, stride, padding, norm != "BN", sn,
+                            compute_dtype)
         self.norm_layer = (nn.BatchNorm3d(cout, eps=1e-5, momentum=0.01)
                            if norm == "BN" else None)
         self.activation = _activation(activation)
@@ -100,7 +167,7 @@ class ConvLayer3D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.conv3d(x)
         if self.norm_layer is not None:
-            out = self.norm_layer(out)
+            out = _bn(self.norm_layer, out, self.compute_dtype)
         if self.activation is not None:
             out = self.activation(out)
         return out
@@ -111,27 +178,73 @@ class ResidualBlock3D(nn.Module):
     and BN) on every block, as the reference builds it."""
 
     def __init__(self, cin: int, cout: int, stride: Tuple[int, int, int] = (1, 1, 1),
-                 norm: Optional[str] = None, sn: bool = False):
+                 norm: Optional[str] = None, sn: bool = False,
+                 compute_dtype: torch.dtype = torch.float32, conv_impl: str = "xla"):
         super().__init__()
         bias = norm != "BN"
-        self.conv1 = _conv(cin, cout, 3, stride, 1, bias, sn)
-        self.conv2 = _conv(cout, cout, 3, 1, 1, bias, sn)
+        self.compute_dtype = compute_dtype
+        self.conv1 = _conv(cin, cout, 3, stride, 1, bias, sn, compute_dtype, conv_impl)
+        self.conv2 = _conv(cout, cout, 3, 1, 1, bias, sn, compute_dtype, conv_impl)
         with_bn = norm in ("BN", "IN")
         self.bn1 = nn.BatchNorm3d(cout, eps=1e-5, momentum=0.1) if with_bn else None
         self.bn2 = nn.BatchNorm3d(cout, eps=1e-5, momentum=0.1) if with_bn else None
         self.downsample = nn.Sequential(
-            nn.Conv3d(cin, cout, 1, stride, 0, bias=True),
+            Conv3d(cin, cout, 1, stride, 0, True, compute_dtype),
             nn.BatchNorm3d(cout, eps=1e-5, momentum=0.1))
 
+    def _norm(self, bn: Optional[nn.BatchNorm3d], x: torch.Tensor) -> torch.Tensor:
+        return x if bn is None else _bn(bn, x, self.compute_dtype)
+
+    def _tail(self, out: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+        """relu(bn1(out)) -> conv2 -> bn2, plus the projection's BN."""
+        out = self.conv2(F.relu(self._norm(self.bn1, out)))
+        out = self._norm(self.bn2, out)
+        return F.relu(out + _bn(self.downsample[1], residual, self.compute_dtype))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.conv1(x)
-        if self.bn1 is not None:
-            out = self.bn1(out)
-        out = F.relu(out)
-        out = self.conv2(out)
-        if self.bn2 is not None:
-            out = self.bn2(out)
-        return F.relu(out + self.downsample(x))
+        return self._tail(self.conv1(x), self.downsample[0](x))
+
+
+class DecoderResidualBlock3D(ResidualBlock3D):
+    """ResidualBlock3D over concat(nearest_up2(coarse), skip) with conv1
+    (and, where 4*Co <= 128, the projection) computed by K10 on the coarse
+    grid, without the upsampled or the concatenated tensor: the JAX
+    package's `DecoderResidualBlock3D` with subpixel_impl='pallas'
+    (`v2ce_toolbox_tpu/models/layers.py:440-533`). Same parameters and
+    names as ResidualBlock3D on the concat input. K10 returns
+    compute_dtype; without the fused projection (Co = 64) the residual is
+    the coarse 1x1 conv, upsampled (a 1x1 conv commutes with nearest
+    upsampling), plus the skip's 1x1 conv."""
+
+    def forward(self, coarse: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        """coarse (B, Cu, L, hc, wc) and skip (B, Cs, L, hf, wf), hf in
+        {2hc, 2hc-1} and wf in {2wc, 2wc-1}, as the UNet's halvings give."""
+        th, tw = skip.shape[-2:]
+        cd = self.compute_dtype
+        cu = coarse.shape[1]
+        conv1, proj = self.conv1, self.downsample[0]
+        k1 = (conv1.weight() if isinstance(conv1, SNConv3d) else conv1.weight).to(cd)
+        bias1 = conv1.module.bias if isinstance(conv1, SNConv3d) else conv1.bias
+        kd = proj.weight.to(cd)
+        co = k1.shape[0]
+
+        def cl(t):          # NCDHW -> NDHWC in compute_dtype
+            return t.to(cd).permute(0, 2, 3, 4, 1)
+
+        kernel = k1.permute(2, 3, 4, 1, 0)
+        if 4 * co <= 128:
+            out, res = fused_up_concat_conv(cl(coarse), cl(skip), kernel,
+                                            kd.permute(2, 3, 4, 1, 0), out_dtype=cd)
+            residual = res.permute(0, 4, 1, 2, 3) + _bias(proj.bias)
+        else:
+            out = fused_up_concat_conv(cl(coarse), cl(skip), kernel, out_dtype=cd)
+            residual = (upsample_nearest_to(_apply_conv(coarse, kd[:, :cu], 1, 0, cd, "xla"),
+                                            (th, tw))
+                        + _apply_conv(skip, kd[:, cu:], 1, 0, cd, "xla") + _bias(proj.bias))
+        out = out.permute(0, 4, 1, 2, 3)
+        if bias1 is not None:
+            out = out + _bias(bias1)
+        return self._tail(out, residual)
 
 
 def upsample_nearest_to(x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:

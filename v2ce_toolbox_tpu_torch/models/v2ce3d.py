@@ -1,5 +1,6 @@
 """V2ce3d — the stage-1 model: (B, L, H, W, 2) consecutive-frame pairs ->
-(B, L, H, W, 20) event-count voxels (channel p*10 + bin, p = 0 is ON)."""
+(B, L, H, W, 20) f32 event-count voxels (channel p*10 + bin, p = 0 is ON),
+in any compute_dtype."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from v2ce_toolbox_tpu_torch.models.unet3d import UNet3D
 class V2ce3d(nn.Module):
     def __init__(self, config: ModelConfig = ModelConfig()):
         super().__init__()
+        config.check_backends()
         self.config = config
         self.UNet = UNet3D(
             num_input_channels=config.in_channels,
@@ -24,6 +26,10 @@ class V2ce3d(nn.Module):
             num_residual_blocks=config.num_residual_blocks,
             norm=config.norm,
             sn=config.spectral_norm,
+            compute_dtype=config.compute_dtype,
+            conv_impl=config.conv_impl,
+            subpixel_decoder=config.subpixel_decoder,
+            subpixel_blocks=config.subpixel_blocks,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

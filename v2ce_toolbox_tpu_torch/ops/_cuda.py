@@ -23,10 +23,21 @@ import time
 from typing import Optional
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-_SOURCES = ("compact_rows.cu", "merge_rows.cu", "gen_compact.cu", "gen_pack.cu")
-_HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+# source -> its own flags. The stage-2 kernels reproduce the JAX package's
+# f32 op sequence bit for bit, so nvcc must not contract a multiply and an
+# add into an FMA there; the conv kernels (K9, K10) are held to a
+# tolerance and keep nvcc's default contraction.
+_SOURCES = {
+    "compact_rows.cu": ("-fmad=false",),
+    "merge_rows.cu": ("-fmad=false",),
+    "gen_compact.cu": ("-fmad=false",),
+    "gen_pack.cu": ("-fmad=false",),
+    "conv3d.cu": (),
+    "decoder_conv.cu": (),
+}
+_HEADERS = ("common.cuh", "conv_igemm.cuh")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +51,8 @@ _SIGNATURES = {
     "v2ce_gen_pack": [_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "v2ce_append_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "v2ce_conv3d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "v2ce_decoder_conv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -64,7 +77,9 @@ def _build_dir() -> str:
 def library_path() -> str:
     """Path of the shared library for the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES + _HEADERS:
+    for name, flags in _SOURCES.items():
+        h.update(" ".join((name,) + flags).encode())
+    for name in (*_SOURCES, *_HEADERS):
         with open(os.path.join(_CSRC, name), "rb") as fh:
             h.update(name.encode() + fh.read())
     return os.path.join(_build_dir(), f"libv2ce_kernels_{h.hexdigest()[:16]}.so")
@@ -86,9 +101,9 @@ def build(verbose: bool = False) -> str:
     t0 = time.time()
     procs = []
     try:
-        for s in _SOURCES:
+        for s, flags in _SOURCES.items():
             obj = os.path.join(tmp, s[:-3] + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+            cmd = [nvcc, *NVCC_FLAGS, *flags, *(["-Xptxas", "-v"] if verbose else []),
                    "-c", "-o", obj, os.path.join(_CSRC, s)]
             procs.append((s, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                    stderr=subprocess.PIPE, text=True)))

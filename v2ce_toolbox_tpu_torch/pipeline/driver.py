@@ -377,9 +377,6 @@ class V2cePipeline:
         init (when model_path does not exist) and the sampler draws."""
         if config.infer_type not in ("center", "pano"):
             raise ValueError(f"invalid infer_type {config.infer_type!r}")
-        if config.model.compute_dtype != torch.float32:
-            raise NotImplementedError("bf16 inference is not ported yet (ROADMAP, queue 1: "
-                                      "bf16 stage 1)")
         self.config = config
         if config.infer_type == "center":
             self._check_sampler(config.width)
