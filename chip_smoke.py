@@ -54,7 +54,21 @@ Phases, any failure exits non-zero before the result lines:
      window), and in bf16 through the bf16 fidelity gate of
      `tests/test_model_rewrites.py:119-163` on the clip's first window
      (max error <= 0.05 scale + 1e-3, BinaryMatch at 0.01 >= 0.995, LDATI
-     event count ratio within 0.5% on the same draws, timestamp KS <= 0.02).
+     event count ratio within 0.5% on the same draws, timestamp KS <= 0.02);
+ 11. the training-data path (`data/mvsec.py`) with the full-width
+     FastFlowNet on seeded random weights: (a) K8 correlation against its
+     twin on the five pyramid levels of one 16-pair call at 260x346, within
+     CORR_REL_TOL, with kernel, twin and bound times (CUDA events around
+     one call, and the device alone from CUDA-graph replays), and a
+     torch.profiler breakdown of one pair-flow call; (b) FastFlowNet on the
+     card against the CPU on 2 pairs (TF32 off), within FLOW_REL_TOL;
+     (c) the converter on a synthetic 49-frame 260x346 recording (3
+     packets) with the weights from a `.pt` as `--fastflownet_ckpt` loads
+     them, counted: K8 must launch 30 times, flows (16, 2, 260, 346) and
+     finite, ms per packet and per pair-flow call; (d) EventPackDataset,
+     iterate_batches and device_prefetch on the written packets, batch
+     shapes and dtypes on the card, and the device voxelizer against the
+     numpy one.
 The line before the last is a JSON object of per-kernel results (its
 `launches` is the count of the kernel's own path, KERNEL_PATH, and
 `launches_by_path` every counted path's count; K9's and K10's times are
@@ -91,6 +105,13 @@ CONV_PER_WINDOW = {"conv3d_3x3x3": 14, "fused_up_concat_conv": 2}
 FPS, F, H, W = 30, 24, 260, 346            # the stage-2 chunk of the main path
 PANO_W = 600
 DEVICE = "cuda"
+# the data path: 16-frame packets of a 49-frame recording, one pair-flow
+# call of 16 pairs a direction; K8 against its twin relative to the twin's
+# largest output (f32 sums in another order), the card's FastFlowNet
+# against the CPU's relative to the largest |flow| (cuDNN and the CPU sum
+# the convs in other orders, through five coarse-to-fine levels)
+DATA_FRAMES, PAIRS = 49, 16
+CORR_REL_TOL, FLOW_REL_TOL = 1e-5, 1e-4
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -108,12 +129,15 @@ KERNELS = {
                      "v2ce_toolbox_tpu/ops/conv3d_pallas.py:81"),
     "fused_up_concat_conv": ("v2ce_toolbox_tpu_torch/csrc/decoder_conv.cu",
                              "v2ce_toolbox_tpu/ops/decoder_pallas.py:177"),
+    "correlation": ("v2ce_toolbox_tpu_torch/csrc/correlation.cu",
+                    "v2ce_toolbox_tpu/ops/correlation.py:43"),
 }
 # the phase-3 case whose time stands in the kernels line
 TIMED_CASE = {"gen_compact": "gen_compact[slope]", "compact_rows": "compact_rows",
               "merge_sorted_rows": "merge_sorted_rows", "gen_pack": "gen_pack[slope]",
               "append_rows": "append_rows", "conv3d_3x3x3": "conv3d_3x3x3[bfloat16]",
-              "fused_up_concat_conv": "fused_up_concat_conv[bfloat16]"}
+              "fused_up_concat_conv": "fused_up_concat_conv[bfloat16]",
+              "correlation": "correlation"}
 CENTER_PATH = ("gen_compact", "compact_rows", "merge_sorted_rows")
 RESEARCH_PATH = CENTER_PATH + tuple(CONV_PER_WINDOW)
 # kernel -> the counted path whose count stands as its `launches` in the
@@ -121,7 +145,7 @@ RESEARCH_PATH = CENTER_PATH + tuple(CONV_PER_WINDOW)
 KERNEL_PATH = {"gen_compact": "center CLI", "compact_rows": "center CLI",
                "merge_sorted_rows": "center CLI", "gen_pack": "mode gen_pack",
                "append_rows": "mode bidirectional", "conv3d_3x3x3": "research V2cePipeline",
-               "fused_up_concat_conv": "research V2cePipeline"}
+               "fused_up_concat_conv": "research V2cePipeline", "correlation": "mvsec data"}
 # stage-2 mode -> (SamplerConfig overrides, its CLI flags or None where
 # v2ce.py has no flag for it, the kernels its path launches)
 MODES = {
@@ -352,6 +376,24 @@ def kernels_phase(torch, np, dev):
             log(f"[time] {label} per 24-frame chunk: kernel {tk:.4f} ms, plain {tp:.4f} ms, "
                 f"bound {tb:.4f} ms")
     return results, errs, dense
+
+
+def graph_ms(fn, torch, reps=10):
+    """Median device ms of one fn call, from N_TIMED replays of a CUDA
+    graph holding `reps` calls: the wrapper's Python, which a CUDA-event
+    time of one call includes, is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    return statistics.median(cuda_ms(g.replay, torch) for _ in range(N_TIMED)) / reps
 
 
 def time_one(fn, torch):
@@ -726,6 +768,219 @@ def research_stage1_phase(torch, np, dev, product, x):
         raise AssertionError("the bf16 research model fails the bf16 fidelity gate")
 
 
+def make_recording(np, n, h, w, seed=0):
+    """A synthetic DAVIS recording of n frames at FPS: the moving test
+    pattern, one event per pixel whose intensity changes by more than 8
+    levels between two frames (at a random time in the interval, polarity
+    the sign of the change), and a 1 kHz IMU. Returns the arrays of an
+    MVSEC `davis/left` group."""
+    from tools.make_test_video import make_frames
+
+    rng = np.random.RandomState(seed)
+    images = make_frames(n, h, w, seed)
+    image_ts = np.arange(n) / FPS
+    rows = []
+    for i in range(n - 1):
+        diff = images[i + 1].astype(np.int32) - images[i].astype(np.int32)
+        ys, xs = np.nonzero(np.abs(diff) > 8)
+        t = image_ts[i] + rng.rand(len(ys)) / FPS
+        rows.append(np.stack([xs, ys, t, np.sign(diff[ys, xs])], 1))
+    events = np.concatenate(rows)
+    events = events[np.argsort(events[:, 2], kind="stable")]
+    event_inds = np.searchsorted(events[:, 2], image_ts)
+    imu_ts = np.arange(0, image_ts[-1], 1e-3)
+    return images, image_ts, event_inds, events, rng.randn(len(imu_ts), 6), imu_ts
+
+
+def profile_pair_flow(torch, fn, smi, top=8):
+    """torch.profiler over one warm pair-flow call: wall ms, the device's
+    busy ms (the sum of its kernels' and copies' times; the operators that
+    launch them are left out, so nothing counts twice) and the kernels
+    that take the most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("Activity Buffer")]
+    busy = sum(r[1] for r in rows)
+    if not rows:
+        log(f"[profile] pair-flow call: {wall:.2f} ms wall; device time not measured (the "
+            "profiler saw no device activity)")
+        return
+    rows.sort(key=lambda r: -r[1])
+    log(f"[profile] pair-flow call ({PAIRS} pairs): {wall:.2f} ms wall, device busy "
+        f"{busy:.2f} ms ({busy / wall:.1%}) [{smi}]")
+    for name, ms, count in rows[:top]:
+        log(f"[profile]   {ms:8.3f} ms {ms / busy:6.1%} x{count:<4d} {name[:90]}")
+
+
+def data_phase(torch, np, dev, counted, smi):
+    """Phase 11: the training-data path. Returns ({"correlation": per-call
+    sums of ms, plain_ms, device_ms, plain_device_ms, bound_ms, bound_by,
+    library_ms}, K8's max abs error)."""
+    import pickle
+
+    from v2ce_toolbox_tpu_torch.data import mvsec
+    from v2ce_toolbox_tpu_torch.data.event_pack_dataset import EventPackDataset
+    from v2ce_toolbox_tpu_torch.data.loader import device_prefetch, iterate_batches
+    from v2ce_toolbox_tpu_torch.data.voxelize import (gen_discretized_event_volume,
+                                                      gen_discretized_event_volume_np)
+    from v2ce_toolbox_tpu_torch.models import fastflownet
+    from v2ce_toolbox_tpu_torch.models.fastflownet import FastFlowNet, init_fastflownet
+    from v2ce_toolbox_tpu_torch.ops import correlation
+    from v2ce_toolbox_tpu_torch.utils.weights import load_fastflownet
+
+    n = DATA_FRAMES
+    rec = make_recording(np, n, H, W)
+    images = rec[0]
+    net = FastFlowNet()
+    init_fastflownet(net, 0)
+    ckpt = os.path.join(OUT, "fastflownet.pt")
+    torch.save(net.state_dict(), ckpt)
+    sd = load_fastflownet(ckpt)
+
+    # (a) K8 against its twin on the calls of one 16-pair call
+    pair_flow = mvsec.fastflownet_pair_flow(sd, device=DEVICE)
+    calls = []
+    with record_calls([fastflownet], "correlation", calls):
+        pair_flow(images[:PAIRS], images[1:PAIRS + 1])
+    torch.cuda.synchronize()
+    if len(calls) != 5:
+        raise AssertionError(f"one FastFlowNet call made {len(calls)} cost volumes, not 5")
+    r = dict(ms=0.0, plain_ms=0.0, device_ms=0.0, plain_device_ms=0.0, bound_ms=0.0,
+             bound_by="bytes", library_ms=None)
+    err = 0.0
+    t_ops = t_bytes = 0.0
+    for a, k in calls:
+        f1, f2 = a[:2]
+        got, want = correlation.correlation(*a, **k), correlation._correlation_torch(*a, **k)
+        torch.cuda.synchronize()
+        rel = rel_err(got, want)
+        err = max(err, float((got - want).abs().max()))
+        if not (torch.isfinite(got).all() and rel <= CORR_REL_TOL):
+            raise AssertionError(f"correlation {tuple(f1.shape)}: {rel:.3e} from its twin "
+                                 f"(limit {CORR_REL_TOL:g})")
+        tk, tp = time_pair(lambda: correlation.correlation(*a, **k),
+                           lambda: correlation._correlation_torch(*a, **k), torch)
+        dk = graph_ms(lambda: correlation.correlation(*a, **k), torch)
+        dp = graph_ms(lambda: correlation._correlation_torch(*a, **k), torch, reps=1)
+        # each input read once, the 81 planes written once; a multiply-add
+        # per channel, tap and pixel
+        flops = 2 * f1.numel() * got.shape[1]
+        tb, by = conv_bound(flops, nbytes([f1, f2, got]), "float32")
+        t_ops += flops / PEAK_FLOPS["float32"] * 1e3
+        t_bytes += nbytes([f1, f2, got]) / HBM_BYTES_PER_S * 1e3
+        log(f"[data] correlation {tuple(f1.shape)} -> {tuple(got.shape)}: rel err {rel:.3e} "
+            f"(limit {CORR_REL_TOL:g}); kernel {tk:.4f} ms ({dk:.4f} on the device), plain "
+            f"{tp:.4f} ms ({dp:.4f}), bound {tb:.4f} ms ({by})")
+        r["ms"] += tk
+        r["plain_ms"] += tp
+        r["device_ms"] += dk
+        r["plain_device_ms"] += dp
+        r["bound_ms"] += tb
+    r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"[data] correlation per {PAIRS}-pair call (5 levels): kernel {r['ms']:.4f} ms "
+        f"({r['device_ms']:.4f} on the device), plain {r['plain_ms']:.4f} ms "
+        f"({r['plain_device_ms']:.4f}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
+    del calls
+    profile_pair_flow(torch, lambda: pair_flow(images[:PAIRS], images[1:PAIRS + 1]), smi)
+
+    # (b) FastFlowNet on the card against the CPU, the same weights
+    cpu_flow = mvsec.fastflownet_pair_flow(sd, device="cpu")
+    got, want = pair_flow(images[:2], images[1:3]), cpu_flow(images[:2], images[1:3])
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    log(f"[data] FastFlowNet card vs CPU, 2 pairs {H}x{W}: flow up to "
+        f"{float(np.abs(want).max()):.4f} px, relative error {rel:.3e} (limit {FLOW_REL_TOL:g})")
+    if got.shape != (2, 2, H, W) or not np.isfinite(got).all() or rel > FLOW_REL_TOL:
+        raise AssertionError("FastFlowNet on the card disagrees with the CPU")
+
+    # (c) the converter, counted. The GPU machine's Python installation
+    # has no h5py, so this drives `convert_mvsec_arrays`, the command
+    # line's steps after its h5 read, with the weights loaded from the .pt
+    # as `--fastflownet_ckpt` loads them.
+    log("[data] h5py is not installed on the card: the h5 reader (convert_mvsec_h5, the "
+        "command line) ran only in the CPU tests; this drives convert_mvsec_arrays")
+    flow_s = []
+
+    def timed(fn):
+        def inner(a, b):
+            t0 = time.time()
+            out = fn(a, b)                       # numpy out: the card has finished
+            flow_s.append(time.time() - t0)
+            return out
+        return inner
+
+    out_dir = os.path.join(OUT, "packets")
+    convert = lambda d: mvsec.convert_mvsec_arrays(  # noqa: E731
+        *rec, d, "synth_left", pair_flow_fn=timed(mvsec.fastflownet_pair_flow(sd, device=DEVICE)))
+    convert(os.path.join(OUT, "packets_warm"))           # warm-up (cuDNN, allocator)
+    flow_s.clear()
+    t0 = time.time()
+    written = counted("mvsec data", ("correlation",), lambda: convert(out_dir),
+                      f"convert_mvsec_arrays, {n} frames {H}x{W}, FastFlowNet from {ckpt}")
+    wall = time.time() - t0
+    launches = counted.by_path["mvsec data"]["correlation"]
+    if written != (n - 1) // 16 or launches != 10 * written:
+        raise AssertionError(f"{written} packets and {launches} K8 launches, expected "
+                             f"{(n - 1) // 16} and {10 * ((n - 1) // 16)}")
+    names = sorted(os.listdir(out_dir))
+    for i, name in enumerate(names):
+        with open(os.path.join(out_dir, name), "rb") as f:
+            pkt = pickle.load(f)
+        for key in ("optical_flow", "acc_flow"):
+            v = pkt[key]
+            if v.shape != (16, 2, H, W) or v.dtype != np.float32 or not np.isfinite(v).all():
+                raise AssertionError(f"{name} {key}: {v.shape} {v.dtype}, or not finite")
+        if i == 0 and not np.array_equal(pkt["acc_flow"][0], pkt["optical_flow"][0]):
+            raise AssertionError("the file's first acc_flow is not its forward flow")
+    log(f"[data] {written} packets in {wall:.3f} s: {wall / written * 1e3:.2f} ms a packet, "
+        f"{statistics.median(flow_s) * 1e3:.2f} ms a pair-flow call (median of "
+        f"{len(flow_s)}, {PAIRS} pairs), K8 {launches} launches [{smi}]")
+
+    # (d) the packets back into batches on the card
+    ds = EventPackDataset("train", out_dir)
+    t0 = time.time()
+    host = list(iterate_batches(ds, 2, num_workers=2))
+    t1 = time.time()
+    batches = list(device_prefetch(iter(host), device=DEVICE))
+    torch.cuda.synchronize()
+    load_s, copy_s = t1 - t0, time.time() - t1
+    want = {"image_units": (2, 16, H, W, 2), "voxels": (2, 16, H, W, 20), "imu": (2, 16, 6),
+            "flows": (2, 16, H, W, 4), "lfr": (2, 16, H, W, 1)}
+    b = batches[0] if len(batches) == 1 else {}
+    shapes = {k: (tuple(v.shape), str(v.dtype), v.device.type) for k, v in b.items()}
+    if (sorted(b) != sorted(want) or any(
+            shapes[k] != (want[k], "torch.float32", dev.type) for k in want)
+            or not all(torch.isfinite(v).all() for v in b.values())):
+        raise AssertionError(f"the dataset's batches: {len(batches)}, {shapes}")
+    log(f"[data] EventPackDataset -> iterate_batches: 1 batch of 2 in {load_s * 1e3:.1f} ms "
+        f"(host); device_prefetch {copy_s * 1e3:.1f} ms ({nbytes(batches) / 1e6:.1f} MB "
+        f"pinned and copied); {shapes}")
+    # the device voxelizer against the numpy one on one interval's events
+    ev = mvsec._to_structured(rec[3][rec[2][0]:rec[2][1]])
+    ref = gen_discretized_event_volume_np(ev, (20, H, W))
+    t = lambda f: torch.from_numpy(ev[f].astype(np.int32)).to(dev)  # noqa: E731
+    vol = gen_discretized_event_volume(t("timestamp"), t("x"), t("y"), t("polarity"),
+                                       torch.ones(len(ev), dtype=torch.bool, device=dev),
+                                       (20, H, W)).cpu().numpy()
+    # f32 timestamps (the jnp version's arithmetic) against the numpy
+    # splat's f64: the JAX package's own bound for the pair, 1e-4
+    rel = float(np.abs(vol - ref).max() / np.abs(ref).max())
+    log(f"[data] gen_discretized_event_volume on the card, {len(ev)} events: {rel:.3e} "
+        f"relative to the numpy splat (limit 1e-4)")
+    if rel > 1e-4:
+        raise AssertionError("the device voxelizer disagrees with the numpy one")
+    return {"correlation": r}, err
+
+
 def main():
     import torch
 
@@ -779,6 +1034,10 @@ def main():
 
     # 9. the research configuration and --bf16, counted
     research_phase(torch, np, counted, smi)
+
+    # 11. the training-data path, counted
+    data_results, errs["correlation"] = data_phase(torch, np, dev, counted, smi)
+    results.update(data_results)
     for name in KERNELS:
         if counted.by_path[KERNEL_PATH[name]][name] <= 0:
             raise AssertionError(f"{KERNEL_PATH[name]} never launched {name}")
@@ -826,7 +1085,8 @@ def main():
                         "max_abs_err": errs[name],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r.get("bound_by", "bytes"),
-                        "library_ms": r.get("library_ms")})
+                        "library_ms": r.get("library_ms"),
+                        **{k: r[k] for k in ("device_ms", "plain_device_ms") if k in r}})
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

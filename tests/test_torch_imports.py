@@ -13,8 +13,17 @@ MODULES = [
     "v2ce_toolbox_tpu_torch.config",
     "v2ce_toolbox_tpu_torch.events",
     "v2ce_toolbox_tpu_torch.cli",
+    "v2ce_toolbox_tpu_torch.data",
+    "v2ce_toolbox_tpu_torch.data.dummy_data_gen",
+    "v2ce_toolbox_tpu_torch.data.event_chunk",
+    "v2ce_toolbox_tpu_torch.data.event_pack_dataset",
+    "v2ce_toolbox_tpu_torch.data.loader",
+    "v2ce_toolbox_tpu_torch.data.mvsec",
+    "v2ce_toolbox_tpu_torch.data.voxelize",
+    "v2ce_toolbox_tpu_torch.io.native",
     "v2ce_toolbox_tpu_torch.io.video",
     "v2ce_toolbox_tpu_torch.models",
+    "v2ce_toolbox_tpu_torch.models.fastflownet",
     "v2ce_toolbox_tpu_torch.models.layers",
     "v2ce_toolbox_tpu_torch.models.unet3d",
     "v2ce_toolbox_tpu_torch.models.v2ce3d",
@@ -23,6 +32,7 @@ MODULES = [
     "v2ce_toolbox_tpu_torch.ops.bitpack",
     "v2ce_toolbox_tpu_torch.ops.compact",
     "v2ce_toolbox_tpu_torch.ops.conv3d",
+    "v2ce_toolbox_tpu_torch.ops.correlation",
     "v2ce_toolbox_tpu_torch.ops.decoder",
     "v2ce_toolbox_tpu_torch.ops.gen",
     "v2ce_toolbox_tpu_torch.ops.ldati",
@@ -31,6 +41,7 @@ MODULES = [
     "v2ce_toolbox_tpu_torch.pipeline.preprocess",
     "v2ce_toolbox_tpu_torch.pipeline.render",
     "v2ce_toolbox_tpu_torch.pipeline.windows",
+    "v2ce_toolbox_tpu_torch.utils.v2e",
     "v2ce_toolbox_tpu_torch.utils.weights",
 ]
 

@@ -1,10 +1,12 @@
 """The port's CUDA kernels (K1 gen_compact, K2 compact_rows, K3
 merge_sorted_rows, K4 gen_pack, K5 append_rows) against their plain-torch
 twins, at the shapes of the stage-2 paths (24-frame chunks of 260x346
-voxels), and the research stage-1 convs (K9 conv3d_3x3x3, K10
+voxels), the research stage-1 convs (K9 conv3d_3x3x3, K10
 fused_up_concat_conv) against theirs: f32 outputs within 1e-5 of the twin
 relative to its largest value (sums in another order), bf16 outputs within
-8e-3 (one bf16 ulp where an f32 sum straddles a rounding boundary).
+8e-3 (one bf16 ulp where an f32 sum straddles a rounding boundary), and
+FastFlowNet's cost volume (K8 correlation) at its five pyramid levels
+within 1e-5 (the same reason).
 
 This file imports no jax, so it also runs where jax is not installed:
 
@@ -17,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from v2ce_toolbox_tpu_torch.ops import compact, conv3d, decoder, gen
+from v2ce_toolbox_tpu_torch.ops import compact, conv3d, correlation, decoder, gen
 
 INVALID = compact.INVALID
 
@@ -233,3 +235,26 @@ def test_conv_wrappers_never_take_the_twin_off_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         decoder.fused_conv_even(x, torch.empty((2, 3, 2, 3, 16, 8), device="meta"),
                                 torch.float32)
+
+
+# (C, H, W) of FastFlowNet's five levels for 260x346 frames padded to
+# 320x384 (16 pairs a call), and md below 4 on one level
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("c,h,w,md", [(32, 80, 96, 4), (64, 40, 48, 4), (64, 20, 24, 4),
+                                      (64, 10, 12, 4), (64, 5, 6, 4), (16, 37, 45, 2)])
+def test_correlation_equals_twin_on_card(c, h, w, md):
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(c * h + w)
+    f1 = torch.randn((16, c, h, w), generator=g, device=dev)
+    f2 = torch.randn((16, c, h, w), generator=g, device=dev)
+    got = correlation.correlation(f1, f2, md)
+    want = correlation._correlation_torch(f1, f2, md)
+    assert got.shape == want.shape == (16, (2 * md + 1) ** 2, h, w)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert torch.isfinite(got).all() and err <= 1e-5, err
+
+
+def test_correlation_never_takes_the_twin_off_cpu():
+    f = torch.empty((2, 32, 8, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        correlation.correlation(f, f)

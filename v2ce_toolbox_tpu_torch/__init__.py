@@ -5,7 +5,8 @@ package so each counterpart is easy to find; public functions keep the JAX
 package's tensor layouts. This package imports torch, numpy and cv2 and
 never jax.
 
-Covered so far: the center-mode CLI path (decode, resize, the V2ce3d
-3D-UNet, window merge, the LDATI 'slope' sampler through the fused wire
-format, the npz event stream and the preview mp4).
+Covered so far: the inference CLI (decode, resize, the V2ce3d 3D-UNet,
+window merge, the LDATI sampler through the wire format, the npz event
+stream and the preview mp4) and the training-data path (the MVSEC
+converter with FastFlowNet flows, the packet dataset and its loader).
 """

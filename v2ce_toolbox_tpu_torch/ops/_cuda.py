@@ -27,8 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 # source -> its own flags. The stage-2 kernels reproduce the JAX package's
 # f32 op sequence bit for bit, so nvcc must not contract a multiply and an
-# add into an FMA there; the conv kernels (K9, K10) are held to a
-# tolerance and keep nvcc's default contraction.
+# add into an FMA there; the conv kernels (K9, K10) and the cost volume
+# (K8) are held to a tolerance and keep nvcc's default contraction.
 _SOURCES = {
     "compact_rows.cu": ("-fmad=false",),
     "merge_rows.cu": ("-fmad=false",),
@@ -36,6 +36,7 @@ _SOURCES = {
     "gen_pack.cu": ("-fmad=false",),
     "conv3d.cu": (),
     "decoder_conv.cu": (),
+    "correlation.cu": (),
 }
 _HEADERS = ("common.cuh", "conv_igemm.cuh")
 
@@ -53,6 +54,7 @@ _SIGNATURES = {
     "v2ce_append_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "v2ce_conv3d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "v2ce_decoder_conv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "v2ce_correlation": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

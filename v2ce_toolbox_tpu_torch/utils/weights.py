@@ -1,10 +1,12 @@
-"""Stage-1 weights: seeded random init, reference `.pt` loading, and the
-conversion from the JAX package's variable tree.
+"""Weights: seeded random init, reference `.pt` loading, and the
+conversion from the JAX package's variable trees.
 
 `from_jax_variables` is the inverse of
 `v2ce_toolbox_tpu/utils/torch_compat.convert_v2ce3d_state_dict`: it takes
 the flax {'params', 'batch_stats', 'sn'} tree (numpy arrays) and returns
 the port's state_dict (reference torch key names).
+`fastflownet_from_jax_variables` does the same for FastFlowNet, and
+`load_fastflownet` reads the port's own FastFlowNet `.pt`.
 """
 
 from __future__ import annotations
@@ -121,3 +123,48 @@ def load_weights(model: nn.Module, model_path: Optional[str], seed: int = 0) -> 
     logger.warning("model checkpoint %s not found — using seeded random init",
                    model_path)
     init_weights(model, seed)
+
+
+# FastFlowNet: the flax names of the JAX package's convs. `_convrelu`'s
+# convs bind to the module that builds them, so FastFlowNet's top level
+# holds Conv_0 ... Conv_12 in creation order (the three pyramid stages,
+# then rconv2 ... rconv6), and each decoder Conv_0 ... Conv_5 plus conv7.
+_FFN_TOP = ["pconv1_1", "pconv1_2", "pconv2_1", "pconv2_2", "pconv2_3",
+            "pconv3_1", "pconv3_2", "pconv3_3",
+            "rconv2", "rconv3", "rconv4", "rconv5", "rconv6"]
+_FFN_DECODER = ["conv1", "conv2", "conv3", "conv4", "conv5", "conv6"]
+
+
+def fastflownet_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax FastFlowNet variables ({'params': ...}, numpy arrays) -> the
+    port's FastFlowNet state_dict. A flax ConvTranspose (SAME, stride 2)
+    is torch's ConvTranspose2d(4, 2, 1) with the kernel flipped in both
+    spatial axes and laid out (in, out, kh, kw)."""
+    params = variables["params"]
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(tkey: str, p: Mapping):
+        sd[f"{tkey}.weight"] = _j2t_conv(np.asarray(p["kernel"]))
+        sd[f"{tkey}.bias"] = np.asarray(p["bias"])
+
+    for i, name in enumerate(_FFN_TOP):
+        conv(f"{name}.0", params[f"Conv_{i}"])
+    for lvl in (3, 4, 5, 6):
+        p = params[f"up{lvl}"]
+        k = np.asarray(p["kernel"])[::-1, ::-1]               # (kh, kw, in, out)
+        sd[f"up{lvl}.weight"] = np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1)))
+        sd[f"up{lvl}.bias"] = np.asarray(p["bias"])
+    for lvl in (2, 3, 4, 5, 6):
+        p = params[f"decoder{lvl}"]
+        for i, name in enumerate(_FFN_DECODER):
+            conv(f"decoder{lvl}.{name}.0", p[f"Conv_{i}"])
+        conv(f"decoder{lvl}.conv7", p["conv7"])
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def load_fastflownet(path: str) -> Dict[str, torch.Tensor]:
+    """The port's FastFlowNet state_dict from a torch `.pt`/`.pth` file
+    (`torch.save(net.state_dict(), path)`)."""
+    if not path.endswith((".pt", ".pth")):
+        raise ValueError(f"expected a torch state_dict (.pt/.pth), got {path}")
+    return torch.load(path, map_location="cpu", weights_only=True)
