@@ -2,6 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (`v2ce_toolbox_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare-conv TREE [TREE ...]
+
+The second form runs only phase 8 (below) of the chip_smoke.py of each
+checkout TREE, in turns, each in its own process with its own kernel build,
+and prints each run's per-window K9 and K10 times: two versions of the
+shared conv kernels compared on one card (e.g. parent, change, change,
+parent).
 
 Phases, any failure exits non-zero before the result lines:
   1. the card's name and power limit (nvidia-smi);
@@ -69,10 +76,25 @@ Phases, any failure exits non-zero before the result lines:
      iterate_batches and device_prefetch on the written packets, batch
      shapes and dtypes on the card, and the device voxelizer against the
      numpy one.
+ 12. the probe harness (`python -m v2ce_toolbox_tpu_torch.tools.perf_probe`)
+     and its kernels: (a) against their plain twins on the card at the
+     probes' full-width shapes: K11 conv3d_quad on every layer of `quad`
+     and `quad_s2` (bf16 and f32, TF32 off) within CONV_REL_TOL, K12
+     conv3d_wino4 on the three `wino_pallas` shapes within WINO_REL_TOL
+     (by output dtype; the 'nodot' ablation identical), K2w
+     compact_rows(algo="window"), K7 layout_barrier and K13-K16
+     identical; each with kernel, twin and
+     library ms (cuDNN F.conv3d for K11 and K12, clone() for the copies)
+     and its bound (K12's from its Winograd FLOPs), and for K2w, K7 and
+     K13-K16 the device ms from CUDA-graph replays; K13's device time must
+     rise from k=64 to k=256 at a rate under the card's int32 issue rate; (b)
+     the probe CLI with all eight probes, counted: every probe kernel must
+     launch, and only `wino_ablate [noinv]` may print FAILED.
 The line before the last is a JSON object of per-kernel results (its
 `launches` is the count of the kernel's own path, KERNEL_PATH, and
 `launches_by_path` every counted path's count; K9's and K10's times are
-sums over one window's calls, in bf16); the last is
+sums over one window's calls, in bf16, K11's over the probe's layers in
+bf16, K12's over the three `wino_pallas` shapes in bf16); the last is
 {"ok": true, "device": {...}}.
 """
 
@@ -99,6 +121,12 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # land one bf16 ulp away where an f32 sum straddles a rounding boundary
 # (8e-3). K9 returns f32 in both models, K10 the compute dtype.
 CONV_REL_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+# K12 against its twin, f32 out: the two differ only in the order of the
+# C-long products z, and F(4,3)'s collapses (AT entries up to 8 on each
+# axis) lift one ulp of a partial sum to ~1e-5 of the largest output (the
+# f32 twin itself is 1.0e-5 from the exact conv at 8 x 64 x 64 x 192,
+# measured on the CPU): 5e-5; a bf16 output as the convs above
+WINO_REL_TOL = {"float32": 5e-5, "bfloat16": 8e-3}
 RESEARCH = dict(conv_impl="pallas", subpixel_decoder=True, subpixel_impl="pallas",
                 subpixel_blocks=2)
 CONV_PER_WINDOW = {"conv3d_3x3x3": 14, "fused_up_concat_conv": 2}
@@ -112,6 +140,10 @@ DEVICE = "cuda"
 # the convs in other orders, through five coarse-to-fine levels)
 DATA_FRAMES, PAIRS = 49, 16
 CORR_REL_TOL, FLOW_REL_TOL = 1e-5, 1e-4
+# the probe phase: timed runs a call (fewer than N_TIMED: 17 conv layers in
+# two dtypes), the probe CLI's probes and the roofline's op counts
+N_PROBE_TIMED = 7
+K_LO, K_HI = 64, 256
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -131,13 +163,32 @@ KERNELS = {
                              "v2ce_toolbox_tpu/ops/decoder_pallas.py:177"),
     "correlation": ("v2ce_toolbox_tpu_torch/csrc/correlation.cu",
                     "v2ce_toolbox_tpu/ops/correlation.py:43"),
+    "compact_rows_window": ("v2ce_toolbox_tpu_torch/csrc/compact_rows.cu",
+                            "v2ce_toolbox_tpu/ops/compact_pallas.py:127"),
+    "layout_barrier": ("v2ce_toolbox_tpu_torch/csrc/stream_copy.cu",
+                       "v2ce_toolbox_tpu/ops/barrier.py:28"),
+    "conv3d_quad": ("v2ce_toolbox_tpu_torch/csrc/conv3d_quad.cu",
+                    "v2ce_toolbox_tpu/ops/conv3d_quad.py:121"),
+    "conv3d_wino4": ("v2ce_toolbox_tpu_torch/csrc/wino4.cu",
+                     "v2ce_toolbox_tpu/ops/winograd_pallas.py:98"),
+    "op_chain": ("v2ce_toolbox_tpu_torch/csrc/roofline.cu", "tools/perf_probe.py:2510"),
+    "op_chain_ilp": ("v2ce_toolbox_tpu_torch/csrc/roofline.cu", "tools/perf_probe.py:2554"),
+    "stream_copy": ("v2ce_toolbox_tpu_torch/csrc/stream_copy.cu", "tools/perf_probe.py:2597"),
+    "stream_copy_row": ("v2ce_toolbox_tpu_torch/csrc/stream_copy.cu",
+                        "tools/perf_probe.py:2626"),
 }
+PROBE_KERNELS = ("compact_rows_window", "layout_barrier", "conv3d_quad", "conv3d_wino4",
+                 "op_chain", "op_chain_ilp", "stream_copy", "stream_copy_row")
 # the phase-3 case whose time stands in the kernels line
 TIMED_CASE = {"gen_compact": "gen_compact[slope]", "compact_rows": "compact_rows",
               "merge_sorted_rows": "merge_sorted_rows", "gen_pack": "gen_pack[slope]",
               "append_rows": "append_rows", "conv3d_3x3x3": "conv3d_3x3x3[bfloat16]",
               "fused_up_concat_conv": "fused_up_concat_conv[bfloat16]",
-              "correlation": "correlation"}
+              "correlation": "correlation", "compact_rows_window": "compact_rows_window",
+              "layout_barrier": "layout_barrier", "conv3d_quad": "conv3d_quad[bfloat16]",
+              "conv3d_wino4": "conv3d_wino4[bfloat16]", "op_chain": "op_chain",
+              "op_chain_ilp": "op_chain_ilp", "stream_copy": "stream_copy",
+              "stream_copy_row": "stream_copy_row"}
 CENTER_PATH = ("gen_compact", "compact_rows", "merge_sorted_rows")
 RESEARCH_PATH = CENTER_PATH + tuple(CONV_PER_WINDOW)
 # kernel -> the counted path whose count stands as its `launches` in the
@@ -145,7 +196,8 @@ RESEARCH_PATH = CENTER_PATH + tuple(CONV_PER_WINDOW)
 KERNEL_PATH = {"gen_compact": "center CLI", "compact_rows": "center CLI",
                "merge_sorted_rows": "center CLI", "gen_pack": "mode gen_pack",
                "append_rows": "mode bidirectional", "conv3d_3x3x3": "research V2cePipeline",
-               "fused_up_concat_conv": "research V2cePipeline", "correlation": "mvsec data"}
+               "fused_up_concat_conv": "research V2cePipeline", "correlation": "mvsec data",
+               **{name: "probe CLI" for name in PROBE_KERNELS}}
 # stage-2 mode -> (SamplerConfig overrides, its CLI flags or None where
 # v2ce.py has no flag for it, the kernels its path launches)
 MODES = {
@@ -251,12 +303,12 @@ def cuda_ms(fn, torch):
     return start.elapsed_time(end)
 
 
-def time_pair(kernel, plain, torch):
-    """Median ms of kernel and plain over N_TIMED runs, in turns."""
+def time_pair(kernel, plain, torch, n=N_TIMED):
+    """Median ms of kernel and plain over n runs, in turns."""
     kernel(), plain()
     torch.cuda.synchronize()
     tk, tp = [], []
-    for i in range(N_TIMED):
+    for i in range(n):
         order = [(tp, plain), (tk, kernel)] if i % 2 else [(tk, kernel), (tp, plain)]
         for acc, fn in order:
             acc.append(cuda_ms(fn, torch))
@@ -396,11 +448,11 @@ def graph_ms(fn, torch, reps=10):
     return statistics.median(cuda_ms(g.replay, torch) for _ in range(N_TIMED)) / reps
 
 
-def time_one(fn, torch):
-    """Median ms of fn over N_TIMED runs after a warm-up."""
+def time_one(fn, torch, n=N_TIMED):
+    """Median ms of fn over n runs after a warm-up."""
     fn()
     torch.cuda.synchronize()
-    return statistics.median(cuda_ms(fn, torch) for _ in range(N_TIMED))
+    return statistics.median(cuda_ms(fn, torch) for _ in range(n))
 
 
 def conv_bound(flops, moved, dname):
@@ -981,6 +1033,251 @@ def data_phase(torch, np, dev, counted, smi):
     return {"correlation": r}, err
 
 
+def int32_issue_rate(torch):
+    """The card's issue ceiling for one-lane integer ops, in ops/s: SMs x 4
+    schedulers x 32 lanes a clock at the top SM clock nvidia-smi reports
+    (no integer op issues faster; the INT32 pipe alone is half of it)."""
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True).stdout.split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * 128 * mhz * 1e6
+
+
+class Tee:
+    """Writes to stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def probe_phase(torch, np, dev, counted, smi):
+    """Phase 12: the probe harness's kernels against their twins at the
+    probes' full-width shapes, then the probe CLI, counted. Returns
+    ({case: ms, plain_ms, library_ms, bound_ms, bound_by, ...}, {kernel:
+    max abs err}, the stage-2 roofline's measured rates)."""
+    import torch.nn.functional as F
+
+    from v2ce_toolbox_tpu_torch.ops import barrier, compact, conv3d_quad, conv3d_wino4, roofline
+    from v2ce_toolbox_tpu_torch.tools import perf_probe
+
+    n = N_PROBE_TIMED
+    results, errs = {}, {}
+
+    def add(label, tk, tp, tl, tb, by, **extra):
+        r = results.setdefault(label, dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
+                                           t_ops=0.0, t_bytes=0.0))
+        r["ms"] += tk
+        r["plain_ms"] += tp
+        if tl is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + tl
+        r["bound_ms"] += tb
+        r["t_ops" if by == "operations" else "t_bytes"] += tb
+        r.update(extra)
+
+    def check_conv(name, label, got, want, dname):
+        rel = rel_err(got, want)
+        tol = (WINO_REL_TOL if name == "conv3d_wino4" else CONV_REL_TOL)[
+            str(got.dtype).split(".")[1]]
+        abs_err = float((got.float() - want.float()).abs().max())
+        if not (torch.isfinite(got.float()).all() and got.shape == want.shape and rel <= tol):
+            raise AssertionError(f"{name} {dname} {label}: {rel:.3e} from its twin "
+                                 f"(limit {tol:g})")
+        if dname == "bfloat16":
+            errs[name] = max(errs.get(name, 0.0), abs_err)
+        return rel, tol
+
+    # (a) K11 on every layer of `quad` (stride 1) and `quad_s2` (stride 1,2,2)
+    layers = ([(lay, False) for lay in perf_probe.QUAD_LAYERS]
+              + [(lay, True) for lay in perf_probe.QUAD_S2_LAYERS])
+    for (name, h, w, cin, cout), strided in layers:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            g = torch.Generator(device=dev).manual_seed(cin * cout)
+            x = torch.rand((1, 16, h, w, cin), generator=g, device=dev).to(dtype)
+            k = (torch.rand((3, 3, 3, cin, cout), generator=g, device=dev) * 0.01).to(dtype)
+            if strided:
+                kernel = lambda: conv3d_quad.conv3d_quad_s122(x, k)  # noqa: E731
+                plain = lambda: conv3d_quad._quad_core_torch(*conv3d_quad.fold_s122(x, k))  # noqa: E731
+                stride, ho, wo = (1, 2, 2), -(-h // 2), -(-w // 2)
+            else:
+                kernel = lambda: conv3d_quad.conv3d_quad(x, k)  # noqa: E731
+                plain = lambda: conv3d_quad._quad_core_torch(  # noqa: E731
+                    F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1)), k)
+                stride, ho, wo = 1, h, w
+            with torch.no_grad():
+                got = kernel()
+                rel, tol = check_conv("conv3d_quad", name, got, plain(), dname)
+                xl, wl = x.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2).contiguous()
+                flops = 2 * 16 * ho * wo * cin * cout * 27
+                tb, by = conv_bound(flops, nbytes([x, k, got]), dname)
+                tk, tp = time_pair(kernel, plain, torch, n)
+                tl = time_one(lambda: F.conv3d(xl, wl, stride=stride, padding=1), torch, n)
+            log(f"[probe] conv3d_quad {dname} {name} (1, 16, {h}, {w}, {cin}) -> {cout}"
+                f"{' stride (1,2,2)' if strided else ''}: rel err {rel:.3e} (limit {tol:g}); "
+                f"kernel {tk:.4f} ms ({flops / tk / 1e9:.1f} TFLOP/s), plain {tp:.4f} ms, "
+                f"cuDNN {tl:.4f} ms, bound {tb:.4f} ms ({by})")
+            add(f"conv3d_quad[{dname}]", tk, tp, tl, tb, by)
+            del x, k, got, xl, wl
+    torch.cuda.empty_cache()
+
+    # K12 on the three `wino_pallas` shapes; 'nodot' identical to the twin
+    for name, xshape, cout in perf_probe.WINO_SHAPES:
+        cin = xshape[-1]
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            g = torch.Generator(device=dev).manual_seed(cin * cout)
+            x = (torch.rand(xshape, generator=g, device=dev) - 0.5).to(dtype)
+            k = (torch.rand((3, 3, 3, cin, cout), generator=g, device=dev) * 0.05).to(dtype)
+            kernel = lambda: conv3d_wino4.conv3d_wino4(x, k)  # noqa: E731
+            plain = lambda: conv3d_wino4._conv3d_wino4_torch(x, k)  # noqa: E731
+            with torch.no_grad():
+                got = kernel()
+                rel, tol = check_conv("conv3d_wino4", name, got, plain(), dname)
+                same = torch.equal(conv3d_wino4.conv3d_wino4(x, k, ablate="nodot"),
+                                   conv3d_wino4._conv3d_wino4_torch(x, k, ablate="nodot"))
+                if not same:
+                    raise AssertionError(f"conv3d_wino4 {dname} {name}: 'nodot' differs from "
+                                         "its twin")
+                xl, wl = x.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2).contiguous()
+                # the TPU kernel's own cost: the direct conv's FLOPs x 36 / 144
+                flops = 2 * int(np.prod(xshape[:4])) * cin * cout * 27 * 36 // 144
+                tb, by = conv_bound(flops, nbytes([x, k, got]), dname)
+                tk, tp = time_pair(kernel, plain, torch, n)
+                tl = time_one(lambda: F.conv3d(xl, wl, padding=1), torch, n)
+            log(f"[probe] conv3d_wino4 {dname} {name} {xshape} -> {cout}: rel err {rel:.3e} "
+                f"(limit {tol:g}), 'nodot' identical; kernel {tk:.4f} ms, plain {tp:.4f} ms, "
+                f"cuDNN {tl:.4f} ms, bound {tb:.4f} ms ({by}, {flops / 1e9:.1f} Winograd GFLOP)")
+            add(f"conv3d_wino4[{dname}]", tk, tp, tl, tb, by)
+            del x, k, got, xl, wl
+    torch.cuda.empty_cache()
+
+    def add_exact(name, label, kernel, plain, library, bound, by="bytes", **extra):
+        """An integer or copy kernel: identical to its twin; CUDA-event ms of
+        kernel, twin and library call, and the kernel's device ms from
+        CUDA-graph replays (these kernels take less time than the wrapper's
+        Python). Returns the device ms."""
+        got, want = kernel(), plain()
+        err = max_abs_err(got if isinstance(got, tuple) else (got,),
+                          want if isinstance(want, tuple) else (want,))
+        if err != 0:
+            raise AssertionError(f"{name} {label} differs from its plain twin: {err}")
+        errs[name] = 0
+        tk, tp = time_pair(kernel, plain, torch, n)
+        tl = time_one(library, torch, n) if library is not None else None
+        dk = graph_ms(kernel, torch)
+        log(f"[probe] {name} {label}: identical; kernel {tk:.4f} ms ({dk:.4f} on the device), "
+            f"plain {tp:.4f} ms, library {'-' if tl is None else f'{tl:.4f} ms'}, bound "
+            f"{bound:.4f} ms ({by})")
+        add(name, tk, tp, tl, bound, by, device_ms=dk, **extra)
+        return dk
+
+    # K2w at the chain-compaction shape of `compact_algo`, with the payload
+    rng = np.random.RandomState(0)
+    r, nn = 144, 2048 * 89
+    keys = np.where(rng.rand(r, nn) < 0.1, rng.randint(0, 1 << 30, (r, nn)),
+                    compact.INVALID).astype(np.int32)
+    pays = np.where(keys != compact.INVALID, rng.randint(1, 1 << 20, (r, nn)), 0)
+    kk = torch.from_numpy(keys).to(dev)
+    pp = torch.from_numpy(pays.astype(np.int32)).to(dev)
+    kw = dict(cap=1 << 14, chunk=16384)
+    out = compact.compact_rows(kk, [pp], algo="window", **kw)
+    add_exact("compact_rows_window", f"({r}, {nn}) cap {kw['cap']} chunk {kw['chunk']}",
+              lambda: compact.compact_rows(kk, [pp], algo="window", **kw),
+              lambda: compact.compact_rows_torch(kk, [pp], **kw), None,
+              bound_ms("compact_rows", (kk, [pp]), kw, out))
+    del kk, pp, out
+
+    # K7 on the window's voxels
+    vox = torch.rand((1, 16, H, W, 20), device=dev)
+    add_exact("layout_barrier", f"{tuple(vox.shape)} f32", lambda: barrier.layout_barrier(vox),
+              lambda: barrier._layout_barrier_torch(vox), vox.clone,
+              2 * nbytes(vox) / HBM_BYTES_PER_S * 1e3)
+    del vox
+
+    # K13-K16 at the roofline's grid: (144, 11, 128, 128) int32. The op
+    # chains' bound counts the ops that touch data, an XOR and an add a round
+    # and chain (k/2 an element: the rolls are a change of position and the
+    # lane test a constant of it), at the card's int32 issue rate; their
+    # rate, as the JAX probe's, counts the TPU's four vector ops a round (k
+    # el-ops an element), from the device times at two k
+    sc, n_chunks = 16384 // 128, -(-(2 * H * W) // 16384)
+    xr = torch.from_numpy(rng.randint(0, 1 << 30, (144, n_chunks, sc, 128))
+                          .astype(np.int32)).to(dev)
+    total_el = xr.numel()
+    issue = int32_issue_rate(torch)
+    rates = {}
+    for name, fn, plain in [("op_chain", roofline.op_chain, roofline._op_chain_torch),
+                            ("op_chain_ilp", roofline.op_chain_ilp,
+                             roofline._op_chain_ilp_torch)]:
+        ts = {}
+        for kk_ in (K_LO, K_HI):
+            t_ops = kk_ // 2 * total_el / issue * 1e3
+            t_bytes = (nbytes(xr) + total_el // n_chunks * 4) / HBM_BYTES_PER_S * 1e3
+            bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+            if kk_ == K_HI:
+                ts[kk_] = add_exact(name, f"k={kk_}", lambda: fn(xr, kk_), lambda: plain(xr, kk_),
+                                    None, bound, by, k=kk_)
+            else:
+                got = fn(xr, kk_)
+                if not torch.equal(got, plain(xr, kk_)):
+                    raise AssertionError(f"{name} k={kk_} differs from its plain twin")
+                ts[kk_] = graph_ms(lambda: fn(xr, kk_), torch)
+                log(f"[probe] {name} k={kk_}: identical; {ts[kk_]:.4f} ms on the device, bound "
+                    f"{bound:.4f} ms ({by})")
+        rate = (K_HI - K_LO) * total_el / ((ts[K_HI] - ts[K_LO]) / 1e3)
+        rates[name] = rate
+        results[name].update(k_lo_device_ms=ts[K_LO], el_ops_per_s=rate,
+                             issue_el_ops_per_s=issue)
+        log(f"[probe] {name}: on the device k={K_LO} {ts[K_LO]:.4f} ms, k={K_HI} "
+            f"{ts[K_HI]:.4f} ms -> {rate / 1e12:.3f} T el-ops/s, {rate / issue:.1%} of the int32 "
+            f"issue rate {issue / 1e12:.2f} T/s [{smi}]")
+        if name == "op_chain" and not (ts[K_HI] > ts[K_LO] and rate < issue):
+            raise AssertionError(f"{name}: the time does not rise with k at a rate under the "
+                                 f"card's int32 issue rate ({ts}, {rate:.3e} ops/s)")
+    copy_bound = 2 * nbytes(xr) / HBM_BYTES_PER_S * 1e3
+    for name, fn in [("stream_copy", roofline.stream_copy),
+                     ("stream_copy_row", roofline.stream_copy_row)]:
+        tk = add_exact(name, f"{tuple(xr.shape)} int32", lambda: fn(xr),
+                       lambda: roofline._stream_copy_torch(xr), xr.clone, copy_bound)
+        rates[name] = 2 * nbytes(xr) / (tk / 1e3)
+        results[name]["bytes_per_s"] = rates[name]
+        log(f"[probe] {name}: {rates[name] / 1e9:.1f} GB/s read + write on the device, "
+            f"{rates[name] / HBM_BYTES_PER_S:.1%} of the nominal 3.35 TB/s [{smi}]")
+    del xr
+    torch.cuda.empty_cache()
+    for r in results.values():
+        r["bound_by"] = "operations" if r.pop("t_ops") >= r.pop("t_bytes") else "bytes"
+
+    # (b) the probe CLI, all eight probes, counted
+    probes = list(perf_probe.PROBES)
+    tee = Tee(sys.stdout)
+    t0 = time.time()
+    with contextlib.redirect_stdout(tee):
+        probe_out = counted("probe CLI", PROBE_KERNELS + ("compact_rows", "gen_pack"),
+                            lambda: perf_probe.main(probes),
+                            f"python -m v2ce_toolbox_tpu_torch.tools.perf_probe "
+                            f"{' '.join(probes)}")
+    text = "".join(tee.parts)
+    failed = [ln.split(":")[0] for ln in text.splitlines() if "FAILED" in ln]
+    if failed != ["wino4 bf16 [noinv]", "wino4 f32 [noinv]"]:
+        raise AssertionError(f"the probe CLI printed FAILED for {failed}, not only for "
+                             "wino_ablate [noinv]")
+    roof = probe_out["stage2_roofline"]
+    log(f"[probe] the probe CLI ran in {time.time() - t0:.1f} s; FAILED only for {failed}; "
+        f"stage2_roofline: serial {roof['op_rate'] / 1e12:.3f} T el-ops/s, 4 chains "
+        f"{roof['ilp_rate'] / 1e12:.3f}, stream copy {roof['stream_rate'] / 1e9:.1f} GB/s "
+        f"(64 KB blocks), {roof['row_rate'] / 1e9:.1f} GB/s (704 KB blocks) [{smi}]")
+    return results, errs, {"phase 12": rates, "probe CLI": {k: roof[k] for k in (
+        "op_rate", "ilp_rate", "stream_rate", "row_rate")}}
+
+
 def main():
     import torch
 
@@ -1038,6 +1335,11 @@ def main():
     # 11. the training-data path, counted
     data_results, errs["correlation"] = data_phase(torch, np, dev, counted, smi)
     results.update(data_results)
+
+    # 12. the probe harness and its kernels, counted
+    probe_results, probe_errs, roofline_rates = probe_phase(torch, np, dev, counted, smi)
+    results.update(probe_results)
+    errs.update(probe_errs)
     for name in KERNELS:
         if counted.by_path[KERNEL_PATH[name]][name] <= 0:
             raise AssertionError(f"{KERNEL_PATH[name]} never launched {name}")
@@ -1086,12 +1388,49 @@ def main():
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r.get("bound_by", "bytes"),
                         "library_ms": r.get("library_ms"),
-                        **{k: r[k] for k in ("device_ms", "plain_device_ms") if k in r}})
+                        **{k: r[k] for k in ("device_ms", "plain_device_ms", "k",
+                                             "k_lo_device_ms", "el_ops_per_s",
+                                             "issue_el_ops_per_s", "bytes_per_s") if k in r}})
     log(f"[done] {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "stage2_roofline": roofline_rates,
+                      "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 
 
+COMPARE_CONV = """
+import json, sys, torch, numpy
+sys.path.insert(0, ".")
+import chip_smoke
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+results, errs = chip_smoke.conv_kernels_phase(torch, numpy, torch.device("cuda"))
+print("RESULT " + json.dumps(results))
+"""
+
+
+def compare_conv(trees):
+    """Phase 8 of each tree's chip_smoke.py, in turns, one process each."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(smi)
+    for tree in trees:
+        proc = subprocess.run([sys.executable, "-c", COMPARE_CONV], cwd=tree,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"phase 8 of {tree} failed:\n{proc.stderr[-4000:]}")
+        res = json.loads(proc.stdout.split("RESULT ", 1)[1])
+        log(f"[compare-conv] {tree}: " + ", ".join(
+            f"{label} kernel {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, cuDNN "
+            f"{r['library_ms']:.4f})" for label, r in sorted(res.items())) + f" [{smi}]")
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--compare-conv"]:
+        compare_conv(sys.argv[2:])
+    else:
+        main()

@@ -1,4 +1,5 @@
-"""K2 (compact_rows) and K3 (merge_sorted_rows): the port's plain twins are
+"""K2 (compact_rows, algo="place"), K2w (compact_rows, algo="window", the
+default) and K3 (merge_sorted_rows): the port's plain twins are
 byte-identical to the JAX Pallas kernels (interpret mode on the CPU), with
 binding caps and payloads. The CUDA kernels are held against the twins in
 tests/test_torch_kernels.py."""
@@ -47,10 +48,39 @@ def test_compact_rows_matches_jax(case):
     ref = jax_compact.compact_rows(jnp.asarray(keys), [jnp.asarray(p) for p in pays],
                                    cap=cap, chunk=chunk, algo="place")
     got = compact.compact_rows(torch.from_numpy(keys),
-                               [torch.from_numpy(p) for p in pays], cap=cap, chunk=chunk)
+                               [torch.from_numpy(p) for p in pays], cap=cap, chunk=chunk,
+                               algo="place")
     _assert_same(ref, got)
     if cap < n:
         assert (got[3] > got[2]).any()      # the cap really binds
+
+
+@pytest.mark.parametrize("density", [0.0, 0.05, 0.5, 0.95, 1.0])
+def test_compact_rows_window_matches_jax(density):
+    # tests/test_compact.py's densities and shape: (4, 8 * 256), chunk 256,
+    # cap 1024, one payload
+    keys, pay = _rows(int(density * 100), 4, 8 * 256, density)
+    pay = np.where(keys != INVALID, pay, 0)
+    ref = jax_compact.compact_rows(jnp.asarray(keys), [jnp.asarray(pay)], cap=1024,
+                                   chunk=256, algo="window")
+    got = compact.compact_rows(torch.from_numpy(keys), [torch.from_numpy(pay)], cap=1024,
+                               chunk=256)
+    _assert_same(ref, got)
+
+
+def test_compact_rows_window_capacity_drop_matches_jax():
+    # tests/test_compact.py's drop case: fully dense rows, cap = 2 chunks
+    keys = np.random.RandomState(7).randint(0, 1 << 20, (2, 8 * 256)).astype(np.int32)
+    ref = jax_compact.compact_rows(jnp.asarray(keys), cap=512, chunk=256)
+    got = compact.compact_rows(torch.from_numpy(keys), cap=512, chunk=256, algo="window")
+    _assert_same(ref, got)
+    assert (got[2] == 512).all() and (got[3] == 8 * 256).all()
+
+
+def test_compact_rows_rejects_an_unknown_algo():
+    keys = torch.full((1, 256), INVALID, dtype=torch.int32)
+    with pytest.raises(ValueError, match="algo"):
+        compact.compact_rows(keys, cap=256, chunk=256, algo="butterfly")
 
 
 @pytest.mark.parametrize("case", [

@@ -29,18 +29,24 @@ MODULES = [
     "v2ce_toolbox_tpu_torch.models.v2ce3d",
     "v2ce_toolbox_tpu_torch.ops",
     "v2ce_toolbox_tpu_torch.ops._cuda",
+    "v2ce_toolbox_tpu_torch.ops.barrier",
     "v2ce_toolbox_tpu_torch.ops.bitpack",
     "v2ce_toolbox_tpu_torch.ops.compact",
     "v2ce_toolbox_tpu_torch.ops.conv3d",
+    "v2ce_toolbox_tpu_torch.ops.conv3d_quad",
+    "v2ce_toolbox_tpu_torch.ops.conv3d_wino4",
     "v2ce_toolbox_tpu_torch.ops.correlation",
     "v2ce_toolbox_tpu_torch.ops.decoder",
     "v2ce_toolbox_tpu_torch.ops.gen",
     "v2ce_toolbox_tpu_torch.ops.ldati",
+    "v2ce_toolbox_tpu_torch.ops.roofline",
     "v2ce_toolbox_tpu_torch.pipeline.driver",
     "v2ce_toolbox_tpu_torch.pipeline.infer",
     "v2ce_toolbox_tpu_torch.pipeline.preprocess",
     "v2ce_toolbox_tpu_torch.pipeline.render",
     "v2ce_toolbox_tpu_torch.pipeline.windows",
+    "v2ce_toolbox_tpu_torch.tools",
+    "v2ce_toolbox_tpu_torch.tools.perf_probe",
     "v2ce_toolbox_tpu_torch.utils.v2e",
     "v2ce_toolbox_tpu_torch.utils.weights",
 ]

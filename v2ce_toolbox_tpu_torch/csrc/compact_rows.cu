@@ -157,3 +157,17 @@ extern "C" int v2ce_compact_rows(const int* keys, const int* pay, int* out_keys,
                                                           kept, total, tiles, capp);
   return (int)cudaGetLastError();
 }
+
+// K2w: compact_rows(algo="window"), the JAX package's default, replaces
+// `_compact_kernel` (compact_pallas.py:127). Its contract is K2's: the TPU
+// kernel differs only in routing each chunk through a 2-chunk roll
+// butterfly, a VMEM tiling artifact, so the same three launches serve it.
+// The wrapper pads n to a multiple of the caller's chunk with INVALID, as
+// the JAX wrapper does; this entry exists so that its launches count apart.
+extern "C" int v2ce_compact_rows_window(const int* keys, const int* pay, int* out_keys,
+                                        int* out_pay, int* tile_counts, int* kept,
+                                        int* total, int rows, int n, int capp,
+                                        cudaStream_t stream) {
+  return v2ce_compact_rows(keys, pay, out_keys, out_pay, tile_counts, kept, total, rows, n,
+                           capp, stream);
+}

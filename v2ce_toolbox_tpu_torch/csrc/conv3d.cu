@@ -31,6 +31,7 @@ extern "C" int v2ce_conv3d(const void* x, const void* kt, void* out, int B, int 
                            int W, int C, int Co, int dtype_in, int dtype_out, void* stream) {
   v2ce_conv::Taps taps;
   taps.n = 27;
+  taps.per_plane = 0;
   for (int dl = 0; dl < 3; ++dl)
     for (int dh = 0; dh < 3; ++dh)
       for (int dw = 0; dw < 3; ++dw) {
@@ -40,6 +41,6 @@ extern "C" int v2ce_conv3d(const void* x, const void* kt, void* out, int B, int 
         taps.d[0][t][2] = (signed char)(dw - 1);
         taps.d[1][t][0] = taps.d[1][t][1] = taps.d[1][t][2] = 0;
       }
-  return v2ce_conv::launch_conv_taps(x, kt, out, B * L, L, H, W, C, Co, 1, taps, dtype_in,
-                                     dtype_out, static_cast<cudaStream_t>(stream));
+  return v2ce_conv::launch_conv_taps(x, kt, out, B, L, H, W, L, H, W, C, Co, 1, 0, taps,
+                                     dtype_in, dtype_out, static_cast<cudaStream_t>(stream));
 }

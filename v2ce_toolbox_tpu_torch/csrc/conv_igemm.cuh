@@ -1,22 +1,31 @@
 // Implicit-GEMM convolution over a table of taps, channels-last, shared by
-// K9 (csrc/conv3d.cu: 27 taps, one output plane) and K10
-// (csrc/decoder_conv.cu: 18 taps per output H-parity, two planes).
+// K9 (csrc/conv3d.cu: 27 taps, one output plane), K10
+// (csrc/decoder_conv.cu: 18 taps per output H-parity, two planes), K11
+// (csrc/conv3d_quad.cu: a VALID conv over any tap box, the output box
+// smaller than the input's) and K12's batched product
+// (csrc/wino4.cu: one tap, 36 planes, each with its own input matrix).
 //
-//   out[bl, h, p, w, n] = sum_t sum_c x[bl + dl_t, h + dh_pt, w + dw_t, c]
-//                                      * wt[p, t, n, c]
+//   out[b, l, h, p, w, n] = sum_t sum_c xp[b, l + dl_t, h + dh_pt, w + dw_t, c]
+//                                         * wt[p, t, n, c]
 //
-// with zero outside the (L, H, W) box of x. Rows of the GEMM are the
-// output positions (bl, h, w) of one plane p, columns the output channels
-// n, and the reduction runs over (tap, channel). The output is
-// (B*L, H, planes, W, Co): planes = 1 is plain (B, L, H, W, Co).
+// where xp = x + p * x_plane_stride is an input box (B, Li, Hi, Wi, C),
+// zero outside it, and (l, h, w) run over the output box (Lo, Ho, Wo).
+// Rows of the GEMM are the output positions (b, l, h, w) of one plane p,
+// columns the output channels n, and the reduction runs over (tap,
+// channel). The output is (B*Lo, Ho, planes, Wo, Co): planes = 1 is plain
+// (B, Lo, Ho, Wo, Co). A tap table row per plane (K10's parities) or one
+// row for every plane.
 //
 // A block computes a BM x BN tile of one plane: per (tap, BK-channel
 // step) it gathers the shifted input rows (zero-filled at the border) and
 // the weight rows into shared memory, then accumulates in f32 registers.
 // The global loads of the next step are issued before the current step's
-// arithmetic. bf16 inputs run mma.sync m16n8k16 (f32 accumulate, each
-// step's sum added to the running sum in IEEE f32); f32 inputs run
-// CUDA-core FMAs, so nothing rounds to TF32. Channel counts
+// arithmetic. bf16 inputs run mma.sync m16n8k16, f32 inputs CUDA-core
+// FMAs, so nothing rounds to TF32; in both, each step's BK products are
+// summed from zero and the step sums added to the running sum in IEEE
+// f32, so the rounding error grows with the number of steps, not of
+// products (one running sum over K11's 27 x 512 products of positive
+// inputs missed its twin by 1.06e-5 of the largest output). Channel counts
 // must be multiples of 8 (the wrappers pad), so every 16-byte vector of a
 // row is wholly inside or outside C.
 #pragma once
@@ -35,6 +44,7 @@ constexpr int MAX_TAPS = 27;
 
 struct Taps {
   int n;                            // taps per plane
+  int per_plane;                    // 1: plane p reads row p of d; 0: all read row 0
   signed char d[2][MAX_TAPS][3];    // per plane and tap: (dl, dh, dw)
 };
 
@@ -70,33 +80,36 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
 template <typename T, typename OutT>
 __global__ void __launch_bounds__(THREADS)
 conv_taps_kernel(const T* __restrict__ x, const T* __restrict__ wt,
-                 OutT* __restrict__ out, int BL, int L, int H, int W, int C,
-                 int Co, int planes, Taps taps) {
+                 OutT* __restrict__ out, int B, int Li, int Hi, int Wi, int Lo, int Ho,
+                 int Wo, int C, int Co, int planes, long long x_plane_stride, Taps taps) {
   using TL = Tile<T>;
   __shared__ __align__(16) T As[BM][TL::BKP];
   __shared__ __align__(16) T Bs[BN][TL::BKP];
 
   const int tid = threadIdx.x;
   const int p = blockIdx.z;
-  const long long M = (long long)BL * H * W;
+  const int tp = taps.per_plane ? p : 0;
+  x += p * x_plane_stride;
+  const long long M = (long long)B * Lo * Ho * Wo;
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int vcol = (tid % TL::VPR) * TL::VEC;       // this thread's channel offset in a step
   const int rbase = tid / TL::VPR;
 
   // the output positions of the rows this thread gathers
-  int r_bl[TL::A_ITERS], r_l[TL::A_ITERS], r_h[TL::A_ITERS], r_w[TL::A_ITERS];
+  int r_b[TL::A_ITERS], r_l[TL::A_ITERS], r_h[TL::A_ITERS], r_w[TL::A_ITERS];
 #pragma unroll
   for (int s = 0; s < TL::A_ITERS; ++s) {
     long long m = m0 + rbase + s * TL::ROWS_PER_PASS;
     if (m < M) {
-      r_w[s] = (int)(m % W);
-      long long t = m / W;
-      r_h[s] = (int)(t % H);
-      r_bl[s] = (int)(t / H);
-      r_l[s] = r_bl[s] % L;
+      r_w[s] = (int)(m % Wo);
+      long long t = m / Wo;
+      r_h[s] = (int)(t % Ho);
+      t /= Ho;
+      r_l[s] = (int)(t % Lo);
+      r_b[s] = (int)(t / Lo);
     } else {
-      r_bl[s] = -1;
+      r_b[s] = -1;
       r_l[s] = r_h[s] = r_w[s] = 0;
     }
   }
@@ -108,14 +121,14 @@ conv_taps_kernel(const T* __restrict__ x, const T* __restrict__ wt,
   auto load = [&](int step) {
     const int t = step / nc;
     const int c = (step % nc) * BK + vcol;
-    const int dl = taps.d[p][t][0], dh = taps.d[p][t][1], dw = taps.d[p][t][2];
+    const int dl = taps.d[tp][t][0], dh = taps.d[tp][t][1], dw = taps.d[tp][t][2];
 #pragma unroll
     for (int s = 0; s < TL::A_ITERS; ++s) {
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       const int l2 = r_l[s] + dl, h2 = r_h[s] + dh, w2 = r_w[s] + dw;
-      if (r_bl[s] >= 0 && c < C && l2 >= 0 && l2 < L && h2 >= 0 && h2 < H && w2 >= 0 &&
-          w2 < W) {
-        const size_t off = (((size_t)(r_bl[s] + dl) * H + h2) * W + w2) * C + c;
+      if (r_b[s] >= 0 && c < C && l2 >= 0 && l2 < Li && h2 >= 0 && h2 < Hi && w2 >= 0 &&
+          w2 < Wi) {
+        const size_t off = ((((size_t)r_b[s] * Li + l2) * Hi + h2) * Wi + w2) * C + c;
         v = __ldg(reinterpret_cast<const uint4*>(x + off));
       }
       ra[s] = v;
@@ -140,10 +153,10 @@ conv_taps_kernel(const T* __restrict__ x, const T* __restrict__ wt,
       *reinterpret_cast<uint4*>(&Bs[rbase + s * TL::ROWS_PER_PASS][vcol]) = rb[s];
   };
 
-  // the output row offset of (bl, h, p, w): ((bl * H + h) * planes + p) * W + w
+  // the output row offset of (bl, h, p, w): ((bl * Ho + h) * planes + p) * Wo + w
   auto out_row = [&](long long m) -> size_t {
-    const long long w = m % W, t = m / W;
-    return ((size_t)t * planes + p) * W + w;
+    const long long w = m % Wo, t = m / Wo;
+    return ((size_t)t * planes + p) * Wo + w;
   };
 
   if constexpr (std::is_same<T, float>::value) {
@@ -160,6 +173,11 @@ conv_taps_kernel(const T* __restrict__ x, const T* __restrict__ wt,
       stage();
       __syncthreads();
       if (step + 1 < steps) load(step + 1);
+      float part[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) part[i][j] = 0.f;
 #pragma unroll
       for (int k = 0; k < BK; k += 4) {
         float4 a[8], b[4];
@@ -171,14 +189,18 @@ conv_taps_kernel(const T* __restrict__ x, const T* __restrict__ wt,
         for (int i = 0; i < 8; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            float s = acc[i][j];
+            float s = part[i][j];
             s = fmaf(a[i].x, b[j].x, s);
             s = fmaf(a[i].y, b[j].y, s);
             s = fmaf(a[i].z, b[j].z, s);
             s = fmaf(a[i].w, b[j].w, s);
-            acc[i][j] = s;
+            part[i][j] = s;
           }
       }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
       __syncthreads();
     }
 #pragma unroll
@@ -214,6 +236,7 @@ conv_taps_kernel(const T* __restrict__ x, const T* __restrict__ wt,
       // the tensor cores' f32 accumulation does not round as IEEE adds do,
       // and its error grows with the reduction length: each step's BK
       // products are summed there from zero, and the step sums here
+      // (the same rule as the CUDA-core path)
       float part[2][4][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
@@ -268,17 +291,18 @@ conv_taps_kernel(const T* __restrict__ x, const T* __restrict__ wt,
 }
 
 // Launch on the (dtype_in, dtype_out) pair: 0 = float32, 1 = bfloat16.
-inline int launch_conv_taps(const void* x, const void* wt, void* out, int BL, int L, int H,
-                            int W, int C, int Co, int planes, const Taps& taps,
-                            int dtype_in, int dtype_out, cudaStream_t stream) {
-  const long long M = (long long)BL * H * W;
+inline int launch_conv_taps(const void* x, const void* wt, void* out, int B, int Li, int Hi,
+                            int Wi, int Lo, int Ho, int Wo, int C, int Co, int planes,
+                            long long x_plane_stride, const Taps& taps, int dtype_in,
+                            int dtype_out, cudaStream_t stream) {
+  const long long M = (long long)B * Lo * Ho * Wo;
   if (M <= 0 || Co <= 0) return (int)cudaSuccess;
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((Co + BN - 1) / BN),
                   (unsigned)planes);
 #define V2CE_CONV_LAUNCH(TI, TO)                                                   \
   conv_taps_kernel<TI, TO><<<grid, THREADS, 0, stream>>>(                        \
       static_cast<const TI*>(x), static_cast<const TI*>(wt), static_cast<TO*>(out), \
-      BL, L, H, W, C, Co, planes, taps)
+      B, Li, Hi, Wi, Lo, Ho, Wo, C, Co, planes, x_plane_stride, taps)
   if (dtype_in == 0 && dtype_out == 0) V2CE_CONV_LAUNCH(float, float);
   else if (dtype_in == 0 && dtype_out == 1) V2CE_CONV_LAUNCH(float, __nv_bfloat16);
   else if (dtype_in == 1 && dtype_out == 0) V2CE_CONV_LAUNCH(__nv_bfloat16, float);

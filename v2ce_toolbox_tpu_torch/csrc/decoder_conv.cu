@@ -41,6 +41,7 @@ extern "C" int v2ce_decoder_conv(const void* x, const void* kt, void* out, int B
                                  void* stream) {
   v2ce_conv::Taps taps;
   taps.n = 18;
+  taps.per_plane = 1;
   for (int p = 0; p < 2; ++p)
     for (int dl = 0; dl < 3; ++dl)
       for (int a = 0; a < 2; ++a)
@@ -50,6 +51,6 @@ extern "C" int v2ce_decoder_conv(const void* x, const void* kt, void* out, int B
           taps.d[p][t][1] = (signed char)(p + a - 1);
           taps.d[p][t][2] = (signed char)(db - 1);
         }
-  return v2ce_conv::launch_conv_taps(x, kt, out, B * L, L, hc, wc, K, N, 2, taps, dtype_in,
-                                     dtype_out, static_cast<cudaStream_t>(stream));
+  return v2ce_conv::launch_conv_taps(x, kt, out, B, L, hc, wc, L, hc, wc, K, N, 2, 0, taps,
+                                     dtype_in, dtype_out, static_cast<cudaStream_t>(stream));
 }

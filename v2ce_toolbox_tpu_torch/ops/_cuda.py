@@ -27,8 +27,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 # source -> its own flags. The stage-2 kernels reproduce the JAX package's
 # f32 op sequence bit for bit, so nvcc must not contract a multiply and an
-# add into an FMA there; the conv kernels (K9, K10) and the cost volume
-# (K8) are held to a tolerance and keep nvcc's default contraction.
+# add into an FMA there; the conv kernels (K9-K11) and the cost volume (K8)
+# are held to a tolerance and keep nvcc's default contraction, as do K12
+# (its transforms and collapses, held bit for bit to the twin, use the
+# __fmul_rn/__fadd_rn intrinsics, which nvcc never contracts), the copies
+# (K7, K15, K16) and the integer probes (K13, K14).
 _SOURCES = {
     "compact_rows.cu": ("-fmad=false",),
     "merge_rows.cu": ("-fmad=false",),
@@ -37,15 +40,21 @@ _SOURCES = {
     "conv3d.cu": (),
     "decoder_conv.cu": (),
     "correlation.cu": (),
+    "conv3d_quad.cu": (),
+    "wino4.cu": (),
+    "stream_copy.cu": (),
+    "roofline.cu": (),
 }
 _HEADERS = ("common.cuh", "conv_igemm.cuh")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # entry point -> argtypes (the trailing pointer is the CUDA stream)
 _SIGNATURES = {
     "v2ce_compact_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "v2ce_compact_rows_window": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "v2ce_merge_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "v2ce_gen_compact": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
@@ -55,6 +64,14 @@ _SIGNATURES = {
     "v2ce_conv3d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "v2ce_decoder_conv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "v2ce_correlation": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "v2ce_conv3d_quad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "v2ce_conv3d_wino4": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P],
+    "v2ce_layout_barrier": [_P, _P, _L, _L, _P],
+    "v2ce_stream_copy": [_P, _P, _L, _L, _L, _P],
+    "v2ce_stream_copy_row": [_P, _P, _L, _L, _P],
+    "v2ce_op_chain": [_P, _P, _I, _I, _I, _I, _P],
+    "v2ce_op_chain_ilp": [_P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

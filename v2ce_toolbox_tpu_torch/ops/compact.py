@@ -7,6 +7,13 @@ they run their plain-torch twins; on a CUDA tensor they launch the
 hand-written kernels of `csrc/compact_rows.cu` and `csrc/merge_rows.cu`
 (K5 is K3's merge of all R rows into one, with its own entry and launch
 count), or raise. There is no fallback from the kernels to the twins.
+
+`compact_rows` keeps the JAX package's two algorithms and its default,
+algo="window" (K2w, `_compact_kernel`) beside algo="place" (K2,
+`_compact_kernel2`). They share one contract, so both launch K2's kernel,
+each through its own C entry and launch count; the TPU's 2-chunk roll
+butterfly, the only difference, is a VMEM tiling artifact. The port's
+sampler and wire format pass algo="place", as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -22,7 +29,9 @@ _TILE = 8192                   # keys per block of csrc/compact_rows.cu
 
 # launches of each kernel since the last reset (the wrappers add one per
 # call that reaches the card)
-launches = {"compact_rows": 0, "merge_sorted_rows": 0, "append_rows": 0}
+launches = {"compact_rows": 0, "compact_rows_window": 0, "merge_sorted_rows": 0,
+            "append_rows": 0}
+ALGOS = ("window", "place")
 
 Out = Tuple[torch.Tensor, Tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]
 
@@ -50,8 +59,8 @@ def check_cuda_int32(name: str, t: torch.Tensor, shape) -> None:
 # ---------------------------------------------------------------------------
 
 def compact_rows_torch(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
-                       *, cap: int, chunk: int) -> Out:
-    """Plain twin of `compact_rows` (any device)."""
+                       *, cap: int, chunk: int, algo: str = "window") -> Out:
+    """Plain twin of `compact_rows` (any device), for either algo."""
     r, n = keys.shape
     capp = _round_up(cap, chunk)
     valid = keys != INVALID
@@ -70,10 +79,10 @@ def compact_rows_torch(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = ()
 
 
 def compact_rows(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
-                 *, cap: int, chunk: int) -> Out:
+                 *, cap: int, chunk: int, algo: str = "window") -> Out:
     """Stable per-row compaction: elements with key != INVALID move to the
     row front in order, with their payloads (counterpart of
-    compact_pallas.compact_rows(algo="place"), `compact_pallas.py:721`).
+    compact_pallas.compact_rows, `compact_pallas.py:721`).
 
     Args:
       keys: (R, N) int32; INVALID marks empty slots.
@@ -81,6 +90,9 @@ def compact_rows(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
       cap: kept valids per row, rounded up to a multiple of `chunk` (cap'):
         the TPU kernel drops whole chunks, which keeps exactly the first
         cap' valids.
+      algo: "window" (K2w) or "place" (K2): the same result, each with its
+        own C entry and launch count. "window" pads N to a multiple of
+        `chunk` with INVALID first, as the JAX wrapper does.
     Returns:
       (out_keys (R, cap'), out_payloads, kept (R,), total (R,)): INVALID
       keys / zero payloads past kept = min(total, cap'); total - kept is
@@ -88,8 +100,10 @@ def compact_rows(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
     """
     if chunk % 128:
         raise ValueError(f"chunk={chunk} must be a multiple of 128")
+    if algo not in ALGOS:
+        raise ValueError(f"algo={algo!r}: expected one of {ALGOS}")
     if keys.device.type == "cpu":
-        return compact_rows_torch(keys, payloads, cap=cap, chunk=chunk)
+        return compact_rows_torch(keys, payloads, cap=cap, chunk=chunk, algo=algo)
     payloads = tuple(payloads)
     if len(payloads) > 1:
         raise ValueError("the compact_rows kernel routes at most one payload")
@@ -97,6 +111,11 @@ def compact_rows(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
     check_cuda_int32("compact_rows keys", keys, (r, n))
     for p in payloads:
         check_cuda_int32("compact_rows payload", p, (r, n))
+    if algo == "window" and n % chunk:
+        pad = chunk - n % chunk
+        keys = torch.nn.functional.pad(keys, (0, pad), value=INVALID)
+        payloads = tuple(torch.nn.functional.pad(p, (0, pad)) for p in payloads)
+        n += pad
     capp = _round_up(cap, chunk)
     if r > 65535 or n > (1 << 31) - _TILE or capp > (1 << 31) - _TILE:
         raise ValueError(f"compact_rows: ({r}, {n}) -> cap {capp} exceeds the kernel's "
@@ -106,14 +125,15 @@ def compact_rows(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
     tile_counts = torch.empty((r, -(-n // _TILE)), dtype=torch.int32, device=keys.device)
     kept = torch.empty((r,), dtype=torch.int32, device=keys.device)
     total = torch.empty_like(kept)
+    name = "compact_rows_window" if algo == "window" else "compact_rows"
     with torch.cuda.device(keys.device):
-        err = _cuda.lib().v2ce_compact_rows(
+        err = getattr(_cuda.lib(), f"v2ce_{name}")(
             keys.data_ptr(), payloads[0].data_ptr() if payloads else None,
             out_k.data_ptr(), out_p[0].data_ptr() if out_p else None,
             tile_counts.data_ptr(), kept.data_ptr(), total.data_ptr(), r, n, capp,
             _cuda.stream_of(keys))
-    _cuda.check(err, "compact_rows")
-    launches["compact_rows"] += 1
+    _cuda.check(err, name)
+    launches[name] += 1
     return out_k, out_p, kept, total
 
 

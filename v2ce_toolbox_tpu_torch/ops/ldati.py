@@ -443,7 +443,8 @@ def sample_events(voxels: torch.Tensor, draw: Draw, cfg: SamplerConfig, *,
         else:
             keys0, kx0, total_emit, cap_drop = _grid_candidates(voxels, draw, cfg, t0)
         chain_keys, pays, _, _ = compact_rows(
-            keys0, [kx0] if kx0 is not None else [], cap=cfg.cap_bin, chunk=CHUNK)
+            keys0, [kx0] if kx0 is not None else [], cap=cfg.cap_bin, chunk=CHUNK,
+            algo="place")
         ckx = pays[0] if pays else None
     rows_n = chain_keys.shape[0]
 
@@ -481,7 +482,8 @@ def sample_events(voxels: torch.Tensor, draw: Draw, cfg: SamplerConfig, *,
         multi_in = torch.where(((ckx & 0xFF) > 0) & (chain_keys != INVALID),
                                chain_keys, INVALID)
         mchunk = min(CHUNK, max(128, (multi_cap // 128) * 128))
-        m_keys, (mkx,), _, _ = compact_rows(multi_in, [ckx], cap=multi_cap, chunk=mchunk)
+        m_keys, (mkx,), _, _ = compact_rows(multi_in, [ckx], cap=multi_cap, chunk=mchunk,
+                                            algo="place")
         mc = m_keys.shape[1]
         m_valid = m_keys != INVALID
         mvox0 = torch.where(m_valid, m_keys & vox_mask, 0)
@@ -520,7 +522,8 @@ def sample_events(voxels: torch.Tensor, draw: Draw, cfg: SamplerConfig, *,
         vox_in = torch.cat(rows_vox, dim=1)
         if cfg.sort_cap is not None and cfg.sort_cap < rel_in.shape[1]:
             rel_in, (vox_in,), _, _ = compact_rows(
-                rel_in, [vox_in], cap=cfg.sort_cap, chunk=min(CHUNK, cfg.sort_cap))
+                rel_in, [vox_in], cap=cfg.sort_cap, chunk=min(CHUNK, cfg.sort_cap),
+                algo="place")
         rel_only, perm = torch.sort(rel_in, dim=1, stable=True)
         vox_s = torch.gather(vox_in, 1, perm)
         gvox = torch.where(rel_only != INVALID, vox_s + row_bin * seg, 0)
@@ -528,7 +531,7 @@ def sample_events(voxels: torch.Tensor, draw: Draw, cfg: SamplerConfig, *,
         merged = torch.cat(rows, dim=1)
         if cfg.sort_cap is not None and cfg.sort_cap < merged.shape[1]:
             merged, _, _, _ = compact_rows(merged, (), cap=cfg.sort_cap,
-                                           chunk=min(CHUNK, cfg.sort_cap))
+                                           chunk=min(CHUNK, cfg.sort_cap), algo="place")
         merged = torch.sort(merged, dim=1).values
         valid = merged != INVALID
         gvox = torch.where(valid, (merged & vox_mask) + row_bin * seg, 0)

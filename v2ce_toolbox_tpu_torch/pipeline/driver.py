@@ -184,7 +184,7 @@ def _flatten_rows(rel: torch.Tensor, gvox: torch.Tensor, total_emit: torch.Tenso
         side_chunk, side_row_cap = min(4096, wd), wd
     side_cand = torch.where(is_exc, t_abs.to(torch.int32), INVALID)
     side_rows, _, _, ns_tot = compact_rows(side_cand, (), cap=side_row_cap,
-                                           chunk=side_chunk)
+                                           chunk=side_chunk, algo="place")
     side_cap_eff = min(-(-side_cap // 128) * 128, rr * side_rows.shape[1])
     side_flat, _, n_side, _ = merge_sorted_rows(side_rows, (), nb=rr, cap=side_cap_eff)
     return words, kept[0], side_flat[0], n_side[0], ns_tot.sum(), dropped
@@ -308,7 +308,7 @@ def _flatten_chunk_stream(s: EventStream, offsets_us: torch.Tensor, frames: int,
 
     side_in = torch.where(is_exc, idx, INVALID)
     _, (side_key,), n_side, side_total = compact_rows(
-        side_in[None], [out_k[None]], cap=side_cap, chunk=8192)
+        side_in[None], [out_k[None]], cap=side_cap, chunk=8192, algo="place")
     return words, kept[0], side_key[0], n_side[0], side_total[0]
 
 
