@@ -209,12 +209,32 @@ def _assert_conv_close(got, want, out_dtype):
     assert torch.isfinite(got.float()).all() and err <= CONV_TOL[out_dtype], err
 
 
+def _kernel_live_table(run, kt, tiles=None):
+    """Runs `run`, which makes one bf16 conv call, and asserts that the
+    live-step table the kernel's pre-pass filled equals the plain twin's
+    on the weights kt (planes, taps, Co, C), padded as the wrappers pad
+    them, with `tiles` (default `conv3d.gemm_tiles`). Returns run()'s
+    output."""
+    kt = conv3d.kernel_operand(kt, 2, 3)
+    tiles = tiles or conv3d.gemm_tiles(kt.shape[3], kt.shape[2])
+    with conv3d.record_live() as tables:
+        out = run()
+    assert len(tables) == 1
+    got, want = tables[0].cpu(), conv3d.live_steps(kt, *tiles).cpu()
+    assert got.shape == want.shape and int(got.max()) <= 1
+    assert torch.equal(got.bool(), want), (int(got.sum()), int(want.sum()))
+    return out
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype,out_dtype", CONV_DTYPES)
 @pytest.mark.parametrize("b,l,h,w,c,co", [
     (1, 4, 6, 16, 16, 16), (2, 3, 5, 13, 24, 40),
     (1, 4, 7, 9, 20, 12),                    # channels padded to the 8-wide vectors
-    (1, 16, 17, 22, 512, 512), (1, 16, 33, 44, 768, 256)])
+    (1, 16, 17, 22, 512, 512), (1, 16, 33, 44, 768, 256),
+    (1, 4, 260, 346, 32, 32),                # Co = 32: the 32-wide N tile
+    (1, 3, 20, 30, 2, 32),                   # C = 8 after padding: the first layer
+    (2, 3, 9, 37, 64, 64)])                  # a ragged W edge past every box width
 def test_conv3d_equals_twin_on_card(b, l, h, w, c, co, dtype, out_dtype, no_tf32):
     dev = _cuda_or_skip()
     g = torch.Generator(device=dev).manual_seed(c * co)
@@ -237,6 +257,66 @@ def test_fused_conv_even_equals_twin_on_card(hc, wc, k, n, dtype, out_dtype):
     kf = (torch.randn((2, 3, 2, 3, k, n), generator=g, device=dev) / (18 * k) ** 0.5).to(dtype)
     _assert_conv_close(decoder.fused_conv_even(x, kf, out_dtype),
                        decoder._fused_conv_even_torch(x, kf, out_dtype), out_dtype)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,out_dtype", CONV_DTYPES[1:])
+@pytest.mark.parametrize("hc,wc,cu,cs,co,proj", [
+    (65, 87, 128, 64, 64, False),            # decoder_2 of the full-width model
+    (130, 173, 64, 32, 32, True),            # decoder_3, with the projection
+    (9, 13, 16, 8, 8, True), (5, 7, 24, 16, 16, False)])
+def test_fused_conv_even_on_folded_weights_on_card(hc, wc, cu, cs, co, proj, dtype, out_dtype):
+    # the weights really come from the fold, so the kernel's live-step
+    # pre-pass finds its zero blocks and skips them
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(cu * co + proj)
+    x = torch.randn((1, 4, hc, wc, cu + 4 * cs), generator=g, device=dev).to(dtype)
+    kern = torch.randn((3, 3, 3, cu + cs, co), generator=g, device=dev) / (27 * (cu + cs)) ** 0.5
+    pk = torch.randn((1, 1, 1, cu + cs, co), generator=g, device=dev) if proj else None
+    kf = decoder.fold_decoder_kernel(kern, cu, pk).to(dtype)
+    kt = kf.reshape(2, 18, cu + 4 * cs, -1).transpose(2, 3)
+    assert not bool(conv3d.live_steps(kt, *decoder.FOLD_TILES).all())
+    got = _kernel_live_table(lambda: decoder.fused_conv_even(x, kf, out_dtype), kt,
+                             decoder.FOLD_TILES)
+    _assert_conv_close(got, decoder._fused_conv_even_torch(x, kf, out_dtype), out_dtype)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,co,entry", [(128, 128, "conv3d"), (96, 32, "conv3d"),
+                                        (192, 128, "decoder"), (256, 64, "quad")])
+def test_conv_core_skips_planted_zero_blocks_on_card(c, co, entry, out_dtype, no_tf32):
+    # random bf16 weights with zero blocks planted at the core's step
+    # granularity (whole taps, K slices and N tiles, and a block inside
+    # one step): the kernel, which skips the dead steps, equals the twin
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(c + co)
+    x = torch.randn((1, 4, 13, 21, c), generator=g, device=dev).to(torch.bfloat16)
+    if entry == "decoder":
+        k = torch.randn((2, 3, 2, 3, c, co), generator=g, device=dev) / (18 * c) ** 0.5
+        k[0, 1] = 0                                   # three taps of parity 0
+        k[1, :, :, :, 32:96, :64] = 0                 # K slices of one N tile
+        k[:, 2, 1, 2] = 0                             # one tap in both parities
+        k = k.to(torch.bfloat16)
+        got = _kernel_live_table(lambda: decoder.fused_conv_even(x, k, out_dtype),
+                                 k.reshape(2, 18, c, co).transpose(2, 3), decoder.FOLD_TILES)
+        want = decoder._fused_conv_even_torch(x, k, out_dtype)
+    else:
+        k = torch.randn((3, 3, 3, c, co), generator=g, device=dev) / (27 * c) ** 0.5
+        k[0, :, 1] = 0                                # three taps
+        k[2, 2, :, : c // 2] = 0                      # the first K slices of three taps
+        k[1, 1, 1, :, : co // 2] = 0                  # half of N at the centre tap
+        k[:, :, :, 8:16] = 0                          # a block inside every step
+        k = k.to(torch.bfloat16)
+        fn = conv3d.conv3d_3x3x3 if entry == "conv3d" else conv3d_quad.conv3d_quad
+        got = _kernel_live_table(lambda: fn(x, k, out_dtype),
+                                 k.permute(0, 1, 2, 4, 3).reshape(1, 27, co, c))
+        if entry == "conv3d":
+            want = conv3d._conv3d_3x3x3_torch(x, k, out_dtype)
+        else:
+            want = conv3d_quad._quad_core_torch(
+                torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1, 1, 1)), k, out_dtype)
+    _assert_conv_close(got, want, out_dtype)
 
 
 def test_conv_wrappers_never_take_the_twin_off_cpu():
@@ -297,7 +377,10 @@ def test_compact_rows_window_equals_twin_on_card(r, n, cap, chunk, density):
 @pytest.mark.parametrize("b,l,h,w,c,co,strided", [
     (2, 3, 9, 17, 96, 32, False), (1, 4, 7, 9, 20, 12, False),
     (1, 16, 17, 22, 512, 512, False), (2, 3, 9, 13, 32, 64, True),
-    (1, 16, 33, 44, 256, 512, True)])
+    (1, 16, 33, 44, 256, 512, True),
+    (1, 4, 260, 346, 96, 32, False),         # dec3_c1's Co = 32 at full width
+    (1, 4, 260, 346, 32, 64, True),          # enc1_c1s2: 4C = 128 through fold_s122
+    (1, 5, 65, 87, 128, 256, True)])
 def test_conv3d_quad_equals_twin_on_card(b, l, h, w, c, co, strided, dtype, out_dtype,
                                          no_tf32):
     dev = _cuda_or_skip()
@@ -306,7 +389,9 @@ def test_conv3d_quad_equals_twin_on_card(b, l, h, w, c, co, strided, dtype, out_
     k = (torch.randn((3, 3, 3, c, co), generator=g, device=dev) / (27 * c) ** 0.5).to(dtype)
     if strided:
         xf, k4 = conv3d_quad.fold_s122(x, k)
-        got = conv3d_quad.conv3d_quad_s122(x, k, out_dtype)
+        run = lambda: conv3d_quad.conv3d_quad_s122(x, k, out_dtype)  # noqa: E731
+        got = (_kernel_live_table(run, k4.permute(0, 1, 2, 4, 3).reshape(1, 12, co, 4 * c))
+               if dtype == torch.bfloat16 else run())
         want = conv3d_quad._quad_core_torch(xf, k4, out_dtype)
     else:
         xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))

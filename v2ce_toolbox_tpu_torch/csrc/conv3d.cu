@@ -19,16 +19,19 @@
 // Design: the implicit GEMM of csrc/conv_igemm.cuh (output positions x Co,
 // reduced over 27 taps x C). Blocks are independent: the TPU kernel's
 // sequential L tiling (to fill its matrix unit) and its VMEM tile
-// refusals are gone; every block gathers its own halo from global memory
-// through L2. bf16 runs mma.sync m16n8k16; f32 runs CUDA-core FMAs.
-// Left for a later PR: wgmma with TMA-fed multi-stage shared-memory rings,
-// reuse of the input halo across the 27 taps inside a block (today each
-// tap re-reads its shifted rows, from L2), and a narrower N tile for the
-// Co = 32 layer, which leaves half of each 64-wide tile idle.
+// refusals are gone. bf16 runs the Hopper path: each tap's A tile is a TMA
+// box of the input shifted by (dl-1, dh-1, dw-1), its border zero-filled
+// by TMA, fed through a shared-memory ring to wgmma; BN is 32 for the
+// Co = 32 layer (no idle half tile), 64 or 128 above. f32 runs CUDA-core
+// FMAs. What bounds it now: the 27 shifted boxes of a tile are read again
+// from L2 (a halo shared across taps would read each input row once), and
+// the narrow layers (Co = 32: 2 bytes of A per multiply-add column) ask
+// more of L2 and shared memory than of the tensor cores.
 #include "conv_igemm.cuh"
 
-extern "C" int v2ce_conv3d(const void* x, const void* kt, void* out, int B, int L, int H,
-                           int W, int C, int Co, int dtype_in, int dtype_out, void* stream) {
+extern "C" int v2ce_conv3d(const void* x, const void* kt, void* out, unsigned char* live,
+                           long long live_bytes, int B, int L, int H, int W, int C, int Co,
+                           int bn, int bk, int dtype_in, int dtype_out, void* stream) {
   v2ce_conv::Taps taps;
   taps.n = 27;
   taps.per_plane = 0;
@@ -41,6 +44,7 @@ extern "C" int v2ce_conv3d(const void* x, const void* kt, void* out, int B, int 
         taps.d[0][t][2] = (signed char)(dw - 1);
         taps.d[1][t][0] = taps.d[1][t][1] = taps.d[1][t][2] = 0;
       }
-  return v2ce_conv::launch_conv_taps(x, kt, out, B, L, H, W, L, H, W, C, Co, 1, 0, taps,
-                                     dtype_in, dtype_out, static_cast<cudaStream_t>(stream));
+  return v2ce_conv::launch_conv_taps(x, kt, out, live, live_bytes, B, L, H, W, L, H, W, C, Co,
+                                     1, 0, taps, bn, bk, dtype_in, dtype_out,
+                                     static_cast<cudaStream_t>(stream));
 }

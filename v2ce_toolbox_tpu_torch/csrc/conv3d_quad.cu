@@ -18,25 +18,31 @@
 // GFLOP a stride-1 layer, 40-42 a strided one, counted as the direct
 // conv): by operations in both types, at 989 TFLOP/s in bf16 and 67
 // TFLOP/s on the CUDA cores in f32 (nothing rounds to TF32). The folded
-// strided conv does 12 taps x 4C = 1.78x the direct conv's multiply-adds:
-// its zero taps (the phase that reaches index 3) are multiplied as well.
+// strided conv's operand holds 12 taps x 4C = 1.78x the direct conv's
+// multiply-adds: its zero taps (the phase that reaches index 3) are whole
+// C-channel blocks of k4.
 //
 // Design: the implicit GEMM of csrc/conv_igemm.cuh (output positions x Co,
 // reduced over kl*kh*kw taps x C), with the output box smaller than the
 // input box. The TPU kernel packs ws adjacent W positions into its matrix
 // unit's 128-lane N dimension (`pack_weights_quad`: useful MACs
-// kw/(2*ws)) and picks VMEM tiles; neither exists for the card's mma
-// tiles, whose N is 64 wide for every Co, so this kernel does only the
-// conv's own multiply-adds, and the JAX wrapper's `ws`/`tiles` arguments
-// have no counterpart. bf16 runs mma.sync m16n8k16 with each 32-channel
-// step summed from zero and added in IEEE f32; f32 runs CUDA-core FMAs.
-// Left for a later PR: what K9's note lists (wgmma and TMA rings, a halo
-// shared across taps).
+// kw/(2*ws)) and picks VMEM tiles; neither carries over, and the JAX
+// wrapper's `ws`/`tiles` arguments have no counterpart. bf16 runs the
+// Hopper path: TMA boxes of the pre-padded input shifted by each tap (the
+// ragged edge zero-filled by TMA), a shared-memory ring, wgmma with BN =
+// 32 for the Co = 32 layers; each step (a tap and a BK-channel slice) is
+// summed from zero and added in IEEE f32. The live-step pre-pass finds
+// fold_s122's zero blocks in the weights themselves: with BK dividing C
+// they are whole steps, and the folded conv does the direct conv's
+// multiply-adds (BK = 64 over 4C = 128 at enc1_c1s2 spans two phases and
+// keeps 1.33x there). f32 runs CUDA-core FMAs. Left: what K9's note lists
+// (the taps' shifted boxes re-read from L2, no halo shared across taps).
 #include "conv_igemm.cuh"
 
-extern "C" int v2ce_conv3d_quad(const void* x, const void* kt, void* out, int B, int Lp,
-                                int Hp, int Wp, int C, int Co, int kl, int kh, int kw,
-                                int dtype_in, int dtype_out, void* stream) {
+extern "C" int v2ce_conv3d_quad(const void* x, const void* kt, void* out, unsigned char* live,
+                                long long live_bytes, int B, int Lp, int Hp, int Wp, int C,
+                                int Co, int kl, int kh, int kw, int bn, int bk, int dtype_in,
+                                int dtype_out, void* stream) {
   if (kl < 1 || kh < 1 || kw < 1 || kl * kh * kw > v2ce_conv::MAX_TAPS || kl > Lp ||
       kh > Hp || kw > Wp)
     return (int)cudaErrorInvalidValue;
@@ -51,7 +57,7 @@ extern "C" int v2ce_conv3d_quad(const void* x, const void* kt, void* out, int B,
         taps.d[0][t][1] = (signed char)dh;
         taps.d[0][t][2] = (signed char)dw;
       }
-  return v2ce_conv::launch_conv_taps(x, kt, out, B, Lp, Hp, Wp, Lp - kl + 1, Hp - kh + 1,
-                                     Wp - kw + 1, C, Co, 1, 0, taps, dtype_in, dtype_out,
-                                     static_cast<cudaStream_t>(stream));
+  return v2ce_conv::launch_conv_taps(x, kt, out, live, live_bytes, B, Lp, Hp, Wp, Lp - kl + 1,
+                                     Hp - kh + 1, Wp - kw + 1, C, Co, 1, 0, taps, bn, bk,
+                                     dtype_in, dtype_out, static_cast<cudaStream_t>(stream));
 }

@@ -23,21 +23,29 @@
 // Cs 32, Co 32 with the projection), counted as the direct conv (+ the
 // projection) it replaces, 239 and 248 GFLOP: by operations, 0.24 and
 // 0.25 ms at 989 TFLOP/s in bf16 (against 0.035 and 0.096 ms of bytes),
-// 3.6 and 3.7 ms at 67 TFLOP/s in f32. The kernel itself does 36 taps x K
-// x N per coarse position, 1.34x the direct conv's multiply-adds for
-// decoder_2 and 2.57x for decoder_3: the zero blocks of the folded
-// weights are multiplied all the same.
+// 3.6 and 3.7 ms at 67 TFLOP/s in f32. The folded operand holds 36 taps x
+// K x N per coarse position, 1.34x the direct conv's multiply-adds for
+// decoder_2 and 2.57x for decoder_3; most of it is zero blocks of the fold.
 //
 // Design: the implicit GEMM of csrc/conv_igemm.cuh with a tap table of
-// (dl-1, p+a-1, db-1) per parity; grid z is the parity. The TPU kernel's
-// persistent VMEM copy of the folded weights and its slab tiling are gone:
-// each block streams its weight rows from L2. Left for a later PR: wgmma,
-// a shared halo across taps, and skipping the zero blocks of the folded
-// weights.
+// (dl-1, p+a-1, db-1) per parity; grid y is the parity. The TPU kernel's
+// persistent VMEM copy of the folded weights and its slab tiling are gone.
+// bf16 runs the Hopper path (TMA boxes of the folded input shifted by the
+// tap, zero-filled at the coarse border; a shared-memory ring; wgmma) with
+// tiles chosen for the fold (ops/decoder.py): BN = 64, one output
+// W-parity q of a Co = 64 conv or a (q, conv | projection) pair of Co =
+// 32 blocks, and BK = 32, one skip parity (alpha, beta) of Cs = 32. The
+// live-step pre-pass then finds the fold's zero blocks in the weights:
+// decoder_2 runs 0.630 and decoder_3 0.905 of the direct conv's
+// multiply-adds (a nearest-up2 conv on the coarse grid needs fewer than
+// the direct conv on the fine one; decoder_3's N tile keeps some zero
+// columns). f32 runs CUDA-core FMAs over every block. Left: a halo shared
+// across taps.
 #include "conv_igemm.cuh"
 
-extern "C" int v2ce_decoder_conv(const void* x, const void* kt, void* out, int B, int L,
-                                 int hc, int wc, int K, int N, int dtype_in, int dtype_out,
+extern "C" int v2ce_decoder_conv(const void* x, const void* kt, void* out, unsigned char* live,
+                                 long long live_bytes, int B, int L, int hc, int wc, int K,
+                                 int N, int bn, int bk, int dtype_in, int dtype_out,
                                  void* stream) {
   v2ce_conv::Taps taps;
   taps.n = 18;
@@ -51,6 +59,7 @@ extern "C" int v2ce_decoder_conv(const void* x, const void* kt, void* out, int B
           taps.d[p][t][1] = (signed char)(p + a - 1);
           taps.d[p][t][2] = (signed char)(db - 1);
         }
-  return v2ce_conv::launch_conv_taps(x, kt, out, B, L, hc, wc, L, hc, wc, K, N, 2, 0, taps,
-                                     dtype_in, dtype_out, static_cast<cudaStream_t>(stream));
+  return v2ce_conv::launch_conv_taps(x, kt, out, live, live_bytes, B, L, hc, wc, L, hc, wc, K,
+                                     N, 2, 0, taps, bn, bk, dtype_in, dtype_out,
+                                     static_cast<cudaStream_t>(stream));
 }

@@ -27,7 +27,8 @@
 //      ceil(L/4) * ceil(H/4) * (W+2) rows a position;
 //   2. the 36 products Z (36, M, N) f32 through the implicit GEMM of
 //      csrc/conv_igemm.cuh (one tap, 36 planes, each with its own rows of
-//      V and U; bf16 mma.sync with IEEE f32 step sums, f32 CUDA-core FMAs)
+//      V and U; bf16 on the Hopper path: TMA boxes of 128 V rows, wgmma,
+//      IEEE f32 step sums; f32 CUDA-core FMAs)
 //      -- or, for the probe's ablate='nodot', Z as V's lanes (`lanes`: the
 //      V channel of each of the 3Co lanes of the JAX kernel's channel
 //      padding, -1 for a zero pad lane);
@@ -42,8 +43,12 @@
 // conv's 2*B*L*H*W*C*Co*27 times 36/144), at 989 TFLOP/s in bf16 and 67
 // TFLOP/s in f32; by bytes, x read and the output written once. Left for a
 // later PR: one fused kernel that keeps V and Z on chip (the TPU kernel's
-// structure), wgmma, and an N tile narrower than 64 for 3Co = 96.
+// structure); until then V and Z through device memory bound it.
 #include "conv_igemm.cuh"
+
+#include <cuda_bf16.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -212,10 +217,12 @@ inline unsigned blocks(long long n) { return (unsigned)((n + 255) / 256); }
 // x (B, L, H, W, C) and ut (36, Np, Cv) in x's dtype (0 = f32, 1 = bf16);
 // scratch v (36, M, Cv) in x's dtype and z (36, M, Np) f32; lanes (3 Co)
 // int32; out (B, L, H, W, Co) in dtype_out. mode 0 = full, 1 = nodot.
+// live, live_bytes, bn, bk: the product's live-step table and tile (bf16).
 extern "C" int v2ce_conv3d_wino4(const void* x, const void* ut, void* v, float* z,
-                                 const int* lanes, void* out, int B, int L, int H, int W, int C,
-                                 int Cv, int Co, int Np, int mode, int dtype_in, int dtype_out,
-                                 void* stream_) {
+                                 const int* lanes, void* out, unsigned char* live,
+                                 long long live_bytes, int B, int L, int H, int W, int C, int Cv,
+                                 int Co, int Np, int bn, int bk, int mode, int dtype_in,
+                                 int dtype_out, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (B <= 0 || L <= 0 || H <= 0 || W <= 0 || Co <= 0) return (int)cudaGetLastError();
   if (dtype_in < 0 || dtype_in > 1 || dtype_out < 0 || dtype_out > 1 || mode < 0 || mode > 1 ||
@@ -238,8 +245,8 @@ extern "C" int v2ce_conv3d_wino4(const void* x, const void* ut, void* v, float* 
     taps.n = 1;
     taps.per_plane = 0;
     taps.d[0][0][0] = taps.d[0][0][1] = taps.d[0][0][2] = 0;
-    err = v2ce_conv::launch_conv_taps(v, ut, z, 1, 1, 1, (int)M, 1, 1, (int)M, Cv, Np, 36,
-                                      M * Cv, taps, dtype_in, 0, stream);
+    err = v2ce_conv::launch_conv_taps(v, ut, z, live, live_bytes, 1, 1, 1, (int)M, 1, 1, (int)M,
+                                      Cv, Np, 36, M * Cv, taps, bn, bk, dtype_in, 0, stream);
   } else {
     if (dtype_in == 0)
       wino4_nodot_kernel<float><<<blocks(36 * M * N), 256, 0, stream>>>(

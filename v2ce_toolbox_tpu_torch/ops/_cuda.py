@@ -27,8 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 # source -> its own flags. The stage-2 kernels reproduce the JAX package's
 # f32 op sequence bit for bit, so nvcc must not contract a multiply and an
-# add into an FMA there; the conv kernels (K9-K11) and the cost volume (K8)
-# are held to a tolerance and keep nvcc's default contraction, as do K12
+# add into an FMA there; the conv kernels (K9-K11, whose GEMM core
+# conv_igemm.cu the four conv entries share) and the cost volume (K8) are
+# held to a tolerance and keep nvcc's default contraction, as do K12
 # (its transforms and collapses, held bit for bit to the twin, use the
 # __fmul_rn/__fadd_rn intrinsics, which nvcc never contracts), the copies
 # (K7, K15, K16) and the integer probes (K13, K14).
@@ -37,6 +38,7 @@ _SOURCES = {
     "merge_rows.cu": ("-fmad=false",),
     "gen_compact.cu": ("-fmad=false",),
     "gen_pack.cu": ("-fmad=false",),
+    "conv_igemm.cu": (),
     "conv3d.cu": (),
     "decoder_conv.cu": (),
     "correlation.cu": (),
@@ -61,12 +63,13 @@ _SIGNATURES = {
     "v2ce_gen_pack": [_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "v2ce_append_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "v2ce_conv3d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "v2ce_decoder_conv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "v2ce_conv3d": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "v2ce_decoder_conv": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "v2ce_correlation": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "v2ce_conv3d_quad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "v2ce_conv3d_wino4": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _P],
+    "v2ce_conv3d_quad": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _P],
+    "v2ce_conv3d_wino4": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _P],
     "v2ce_layout_barrier": [_P, _P, _L, _L, _P],
     "v2ce_stream_copy": [_P, _P, _L, _L, _L, _P],
     "v2ce_stream_copy_row": [_P, _P, _L, _L, _P],

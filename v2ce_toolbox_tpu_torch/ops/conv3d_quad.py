@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from v2ce_toolbox_tpu_torch.ops import _cuda
-from v2ce_toolbox_tpu_torch.ops.conv3d import DTYPES, check_inputs, kernel_operand
+from v2ce_toolbox_tpu_torch.ops.conv3d import DTYPES, check_inputs, gemm_args, kernel_operand
 
 launches = {"conv3d_quad": 0}
 MAX_TAPS = 27                   # the tap table of csrc/conv_igemm.cuh
@@ -45,7 +45,11 @@ def quad_core(x: torch.Tensor, k: torch.Tensor,
               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """VALID conv of a pre-padded x (B, Lp, Hp, Wp, C) with k (kl, kh, kw, C,
     Co), kl*kh*kw <= 27 (`_quad_core`, `conv3d_quad.py:156`). Returns
-    (B, Lp-kl+1, Hp-kh+1, Wp-kw+1, Co) in out_dtype, summed in f32."""
+    (B, Lp-kl+1, Hp-kh+1, Wp-kw+1, Co) in out_dtype, summed in f32.
+    With bf16 inputs on the card the kernel skips every weight block that
+    is all +-0, so an inf or NaN input that only such a block meets gives a
+    finite output where the twin gives NaN (`csrc/conv_igemm.cuh`).
+    """
     if x.dim() != 5 or k.dim() != 5 or k.shape[3] != x.shape[4] \
             or any(k.shape[i] > x.shape[i + 1] for i in range(3)):
         raise ValueError(f"quad_core: expected x (B, Lp, Hp, Wp, C) and k (kl, kh, kw, C, Co) "
@@ -64,10 +68,12 @@ def quad_core(x: torch.Tensor, k: torch.Tensor,
     cp, cop = xc.shape[4], kt.shape[1]
     out = torch.empty((b, lp - kl + 1, hp - kh + 1, wp - kw + 1, cop), dtype=out_dtype,
                       device=x.device)
+    live, live_bytes, bn, bk = gemm_args(x, 1, kl * kh * kw, cp, cop)
     with torch.cuda.device(x.device):
         err = _cuda.lib().v2ce_conv3d_quad(xc.data_ptr(), kt.data_ptr(), out.data_ptr(),
-                                           b, lp, hp, wp, cp, cop, kl, kh, kw,
-                                           DTYPES[x.dtype], DTYPES[out_dtype],
+                                           live if live is None else live.data_ptr(),
+                                           live_bytes, b, lp, hp, wp, cp, cop, kl, kh, kw,
+                                           bn, bk, DTYPES[x.dtype], DTYPES[out_dtype],
                                            _cuda.stream_of(x))
     _cuda.check(err, "conv3d_quad")
     launches["conv3d_quad"] += 1
@@ -114,11 +120,11 @@ def fold_s122(x: torch.Tensor, k: torch.Tensor):
     b, l, h, w, c = x.shape
     co = k.shape[-1]
     ho, wo = -(-h // 2), -(-w // 2)
+    # xp[:, :, 2i + ph_h, 2j + ph_w] -> xf[:, :, i, j, (ph_w, ph_h)]: one copy
     xp = F.pad(x, (0, 0, 1, 2 * (wo + 1) - w - 1, 1, 2 * (ho + 1) - h - 1, 1, 1))
-    xh = torch.cat([xp[:, :, 0::2], xp[:, :, 1::2]], dim=-1)
-    xf = torch.cat([xh[:, :, :, 0::2], xh[:, :, :, 1::2]], dim=-1)
-    kz = torch.cat([k, k.new_zeros((3, 1, 3, c, co))], dim=1)
-    kz = torch.cat([kz, kz.new_zeros((3, 4, 1, c, co))], dim=2)
-    parts = [kz[:, [ph_h, 2 + ph_h]][:, :, [ph_w, 2 + ph_w]]
-             for ph_w in (0, 1) for ph_h in (0, 1)]
-    return xf, torch.cat(parts, dim=3)
+    xf = xp.reshape(b, l + 2, ho + 1, 2, wo + 1, 2, c).permute(0, 1, 2, 4, 5, 3, 6)
+    # kz[dl, 2du + ph_h, 2dv + ph_w] -> k4[dl, du, dv, (ph_w, ph_h)], kz zero at index 3
+    kz = F.pad(k, (0, 0, 0, 0, 0, 1, 0, 1))
+    k4 = kz.reshape(3, 2, 2, 2, 2, c, co).permute(0, 1, 3, 4, 2, 5, 6)
+    return (xf.reshape(b, l + 2, ho + 1, wo + 1, 4 * c),
+            k4.reshape(3, 2, 2, 4 * c, co))

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from v2ce_toolbox_tpu_torch.ops import _cuda
-from v2ce_toolbox_tpu_torch.ops.conv3d import CHANNEL_ALIGN, DTYPES, check_inputs
+from v2ce_toolbox_tpu_torch.ops.conv3d import CHANNEL_ALIGN, DTYPES, check_inputs, gemm_args
 
 launches = {"conv3d_wino4": 0}
 
@@ -79,7 +79,9 @@ def reset_launches() -> None:
 def filter_transform_lh(k: torch.Tensor) -> torch.Tensor:
     """(3, 3, 3, C, Co) -> U (6, 6, C, 3*Co) in f32: U[xi, lam, :, (dw, co)] =
     sum_{dl, dh} G[xi, dl] G[lam, dh] k[dl, dh, dw] (`winograd_pallas.py:196`)."""
-    g = torch.from_numpy(G4).to(k.device)
+    # non_blocking: a pageable copy is staged at once, without the stream
+    # sync of a blocking one, so the call does not wait for earlier work
+    g = torch.from_numpy(G4).to(k.device, non_blocking=True)
     u = torch.einsum("xa,yb,abwio->xyiwo", g, g, k.float())
     return u.reshape(6, 6, k.shape[3], 3 * k.shape[4])
 
@@ -187,6 +189,9 @@ def conv3d_wino4(x: torch.Tensor, k: torch.Tensor, out_dtype: torch.dtype = torc
         'noinv' raises ValueError.
     Returns:
       (B, L, H, W, Co) in out_dtype.
+    With bf16 inputs on the card the kernel skips every block of U that
+    is all +-0, so an inf or NaN input that only such a block meets gives a
+    finite output where the twin gives NaN (`csrc/conv_igemm.cuh`).
     """
     _check(x, k, lt, th, ablate)
     if x.device.type == "cpu":
@@ -210,11 +215,13 @@ def conv3d_wino4(x: torch.Tensor, k: torch.Tensor, out_dtype: torch.dtype = torc
     lanes = (torch.tensor(nodot_lanes(c, co), dtype=torch.int32, device=x.device)
              if ablate == "nodot" else None)
     out = torch.empty((b, l, h, w, co), dtype=out_dtype, device=x.device)
+    live, live_bytes, bn, bk = gemm_args(x, 36, 1, cv, npad)
     with torch.cuda.device(x.device):
         err = _cuda.lib().v2ce_conv3d_wino4(
             xc.data_ptr(), ut.data_ptr(), v.data_ptr(), z.data_ptr(),
             lanes.data_ptr() if lanes is not None else None,
-            out.data_ptr(), b, l, h, w, c, cv, co, npad, ABLATE[ablate],
+            out.data_ptr(), live if live is None else live.data_ptr(), live_bytes,
+            b, l, h, w, c, cv, co, npad, bn, bk, ABLATE[ablate],
             DTYPES[x.dtype], DTYPES[out_dtype], _cuda.stream_of(x))
     _cuda.check(err, "conv3d_wino4")
     launches["conv3d_wino4"] += 1

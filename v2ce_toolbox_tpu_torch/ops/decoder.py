@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from v2ce_toolbox_tpu_torch.ops import _cuda
-from v2ce_toolbox_tpu_torch.ops.conv3d import DTYPES, check_inputs, kernel_operand
+from v2ce_toolbox_tpu_torch.ops.conv3d import DTYPES, check_inputs, gemm_args, kernel_operand
 
 launches = {"fused_up_concat_conv": 0}
 
@@ -34,6 +34,16 @@ launches = {"fused_up_concat_conv": 0}
 # (K0 + K1 | K2) over rows (i, i+1).
 _F = ([[1.0, 0.0], [0.0, 1.0], [0.0, 1.0]],
       [[1.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
+
+
+# The GEMM core's tile (BN, BK) for the folded weights: N holds Co-wide
+# column blocks (output W-parity q, then the projection's) and K the coarse
+# channels and the skip parities (alpha, beta) of Cs each, so a 64-wide N
+# tile and a 32-channel K step line up with the fold's zero blocks, which
+# the kernel's live-step pre-pass then skips (decoder_2 runs 0.630 and
+# decoder_3 0.905 of the direct conv's multiply-adds, against 1.34x and
+# 2.57x for the dense operand).
+FOLD_TILES = (64, 32)
 
 
 def _fold_matrices(device) -> list:
@@ -141,6 +151,11 @@ def fused_conv_even(x: torch.Tensor, kf: torch.Tensor, out_dtype: torch.dtype) -
       (B, L, hc, 2, wc, N) in out_dtype, summed in f32: per output
       H-parity p, sum over (dl, a, db) of the shifted input times
       kf[p, dl, a, db].
+    With bf16 inputs on the card the kernel skips every weight block that
+    is all +-0, so an inf or NaN input that only such a block meets gives a
+    finite output where the twin gives NaN (`csrc/conv_igemm.cuh`). The
+    fold's own zero blocks never meet the input in the direct conv, so
+    there this is the direct conv's answer.
     """
     if x.device.type == "cpu":
         return _fused_conv_even_torch(x, kf, out_dtype)
@@ -155,10 +170,13 @@ def fused_conv_even(x: torch.Tensor, kf: torch.Tensor, out_dtype: torch.dtype) -
     xc = kernel_operand(x, 4)
     kp, np_ = xc.shape[4], kt.shape[2]
     out = torch.empty((b, l, hc, 2, wc, np_), dtype=out_dtype, device=x.device)
+    live, live_bytes, bn, bk = gemm_args(x, 2, 18, kp, np_, FOLD_TILES)
     with torch.cuda.device(x.device):
         err = _cuda.lib().v2ce_decoder_conv(xc.data_ptr(), kt.data_ptr(), out.data_ptr(),
-                                            b, l, hc, wc, kp, np_, DTYPES[x.dtype],
-                                            DTYPES[out_dtype], _cuda.stream_of(x))
+                                            live if live is None else live.data_ptr(),
+                                            live_bytes, b, l, hc, wc, kp, np_, bn, bk,
+                                            DTYPES[x.dtype], DTYPES[out_dtype],
+                                            _cuda.stream_of(x))
     _cuda.check(err, "fused_up_concat_conv")
     launches["fused_up_concat_conv"] += 1
     return out if np_ == n else out[..., :n]
