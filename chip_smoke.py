@@ -10,7 +10,9 @@ layers, K12 over the `wino_pallas` shapes; bf16 and f32) with the timing
 code of this file and the package of each checkout TREE, in turns, each in
 its own process with its own kernel build: two versions compared on one
 card (e.g. parent, change, change, parent), each kernel's mean against the
-first TREE's.
+first TREE's. K12 is also timed on the device alone (its kernels by
+torch.profiler), so a change in the wrapper's host work can be told from
+one in the kernels.
 
 Phases, any failure exits non-zero before the result lines:
   1. the card's name and power limit (nvidia-smi);
@@ -98,7 +100,13 @@ Phases, any failure exits non-zero before the result lines:
      fold_s122's weights against the direct conv for the strided K11
      layers (from the kernel's table, held against the twin's, as in 8),
      and for K2w, K7 and
-     K13-K16 the device ms from CUDA-graph replays; K13's device time must
+     K13-K16 the device ms from CUDA-graph replays (for K7, K15 and K16
+     also clone()'s); for each K12 call its device ms from CUDA-graph
+     replays, the port's kernels it launches, counted by torch.profiler
+     (bf16: the input transform, the live-step pre-pass and the fused
+     kernel, one each; f32: the input transform, the product and the
+     output transform), and the memory it takes (the allocator's peak
+     rise); K13's device time must
      rise from k=64 to k=256 at a rate under the card's int32 issue rate; (b)
      the probe CLI with all eight probes, counted: every probe kernel must
      launch, and only `wino_ablate [noinv]` may print FAILED.
@@ -122,6 +130,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "smoke_out")      # the clips and the CLI outputs
 N_TIMED = 15
+N_DEVICE = 5                               # profiled calls of a K12 device time
 N_CLI = 3
 STAGE1_REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM device memory
@@ -462,6 +471,51 @@ def graph_ms(fn, torch, reps=10):
     g.replay()
     torch.cuda.synchronize()
     return statistics.median(cuda_ms(g.replay, torch) for _ in range(N_TIMED)) / reps
+
+
+# the port's own CUDA kernels in a profiler's kernel name, demangled or not
+PORT_KERNEL_NAME = r"(wino4_\w+?_kernel|live_steps_kernel|conv_taps_\w+?_kernel)"
+
+
+def port_launches(fn, torch):
+    """({kernel: launches} of the port's own kernels, launches of other
+    (PyTorch) kernels, device ms of all of them, {kernel: device ms} of the
+    port's) in one fn call, from torch.profiler's records of the card's
+    activity; None where the profiler records no kernel."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    own, other, us, own_us = {}, 0, 0.0, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.name.startswith(("Memcpy",
+                                                                                     "Memset")):
+            continue
+        us += ev.device_time_total
+        m = re.search(PORT_KERNEL_NAME, ev.name)
+        if m:
+            own[m.group(1)] = own.get(m.group(1), 0) + 1
+            own_us[m.group(1)] = own_us.get(m.group(1), 0.0) + ev.device_time_total
+        else:
+            other += 1
+    return None if not own and not other else (own, other, us / 1e3,
+                                                {k: v / 1e3 for k, v in own_us.items()})
+
+
+def peak_scratch(fn, torch):
+    """Bytes by which one fn call raises the allocator's peak."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    del out
+    return rise
 
 
 def time_one(fn, torch, n=N_TIMED):
@@ -1130,7 +1184,7 @@ def probe_phase(torch, np, dev, counted, smi):
     from v2ce_toolbox_tpu_torch.tools import perf_probe
 
     n = N_PROBE_TIMED
-    results, errs, s122_live, wino_exact = {}, {}, [], []
+    results, errs, s122_live, wino_exact, wino_calls = {}, {}, [], [], []
 
     def add(label, tk, tp, tl, tb, by, **extra):
         r = results.setdefault(label, dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
@@ -1243,19 +1297,48 @@ def probe_phase(torch, np, dev, counted, smi):
                 tb, by = conv_bound(flops, nbytes([x, k, got]), dname)
                 tk, tp = time_pair(kernel, plain, torch, n)
                 tl = time_one(lambda: F.conv3d(xl, wl, padding=1), torch, n)
+                # the device alone: replays of a CUDA graph of the call; the
+                # kernels one call launches; the memory it takes
+                dk = graph_ms(kernel, torch, reps=2)
+                counts = port_launches(kernel, torch)
+                scratch = peak_scratch(kernel, torch)
+            if counts is None:
+                how = "launches not measured (the profiler recorded no kernel)"
+            else:
+                own, other, _, own_ms = counts
+                how = ("launches a call (device ms): " + ", ".join(
+                    f"{k_} {c_} ({own_ms[k_]:.4f})" for k_, c_ in sorted(own.items()))
+                    + f" (+ {other} PyTorch kernels around it)")
+                want = ({"wino4_input_bf16_kernel": 1, "wino4_fused_kernel": 1,
+                         "live_steps_kernel": 1}
+                        if dtype == torch.bfloat16 else
+                        {"wino4_input_kernel": 1, "conv_taps_f32_kernel": 1,
+                         "wino4_output_kernel": 1})
+                if own != want:
+                    raise AssertionError(f"conv3d_wino4 {dname} {name}: launched {own}, "
+                                         f"expected {want}")
             log(f"[probe] conv3d_wino4 {dname} {name} {xshape} -> {cout}: rel err {rel:.3e} "
-                f"(limit {tol:g}), 'nodot' identical; kernel {tk:.4f} ms, plain {tp:.4f} ms, "
-                f"cuDNN {tl:.4f} ms, bound {tb:.4f} ms ({by}, {flops / 1e9:.1f} Winograd GFLOP)")
+                f"(limit {tol:g}), 'nodot' identical; kernel {tk:.4f} ms ({dk:.4f} on the device), "
+                f"plain {tp:.4f} ms, cuDNN {tl:.4f} ms, bound {tb:.4f} ms ({by}, "
+                f"{flops / 1e9:.1f} Winograd GFLOP); {how}; peak scratch {scratch / 1e6:.1f} MB "
+                f"with the {nbytes(got) / 1e6:.1f} MB output [{smi}]")
             add(f"conv3d_wino4[{dname}]", tk, tp, tl, tb, by)
+            r12 = results[f"conv3d_wino4[{dname}]"]
+            r12["device_ms"] = r12.get("device_ms", 0.0) + dk
+            wino_calls.append(dict(shape=name, dtype=dname, ms=tk, device_ms=dk,
+                                   launches=counts and counts[0],
+                                   other_launches=counts and counts[1],
+                                   kernel_device_ms=counts and counts[3], peak_bytes=scratch))
             del x, k, got, xl, wl
     results["conv3d_wino4[bfloat16]"]["f32_rel_err_vs_f64"] = wino_exact
+    results["conv3d_wino4[bfloat16]"]["calls"] = wino_calls
     torch.cuda.empty_cache()
 
     def add_exact(name, label, kernel, plain, library, bound, by="bytes", **extra):
         """An integer or copy kernel: identical to its twin; CUDA-event ms of
-        kernel, twin and library call, and the kernel's device ms from
-        CUDA-graph replays (these kernels take less time than the wrapper's
-        Python). Returns the device ms."""
+        kernel, twin and library call, and the device ms of the kernel and
+        the library call from CUDA-graph replays (these kernels take less
+        time than the wrapper's Python). Returns the kernel's device ms."""
         got, want = kernel(), plain()
         err = max_abs_err(got if isinstance(got, tuple) else (got,),
                           want if isinstance(want, tuple) else (want,))
@@ -1265,9 +1348,12 @@ def probe_phase(torch, np, dev, counted, smi):
         tk, tp = time_pair(kernel, plain, torch, n)
         tl = time_one(library, torch, n) if library is not None else None
         dk = graph_ms(kernel, torch)
+        dl = graph_ms(library, torch) if library is not None else None
         log(f"[probe] {name} {label}: identical; kernel {tk:.4f} ms ({dk:.4f} on the device), "
-            f"plain {tp:.4f} ms, library {'-' if tl is None else f'{tl:.4f} ms'}, bound "
-            f"{bound:.4f} ms ({by})")
+            f"plain {tp:.4f} ms, library {'-' if tl is None else f'{tl:.4f} ms'}"
+            f"{'' if dl is None else f' ({dl:.4f} on the device)'}, bound {bound:.4f} ms ({by})")
+        if dl is not None:
+            extra["library_device_ms"] = dl
         add(name, tk, tp, tl, bound, by, device_ms=dk, **extra)
         return dk
 
@@ -1485,7 +1571,8 @@ def main():
                                              "k_lo_device_ms", "el_ops_per_s",
                                              "issue_el_ops_per_s", "bytes_per_s",
                                              "live_steps", "live_steps_s122",
-                                             "f32_rel_err_vs_f64") if k in r}})
+                                             "f32_rel_err_vs_f64", "calls",
+                                             "library_device_ms") if k in r}})
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "stage2_roofline": roofline_rates,
                       "card": smi}))
@@ -1501,8 +1588,10 @@ def conv_times(torch, np, dev, n=N_TIMED):
     260x346 window of the full-width research model, K11 over the probe's
     13 `quad` and 4 `quad_s2` layers (and `fold_s122[<dtype>]`, the
     strided wrapper's fold alone over those 4), K12 over the 3
-    `wino_pallas` shapes. Only the wrappers' public signatures are used, so
-    any version of the package can be timed. Returns
+    `wino_pallas` shapes, and those K12 calls on the device alone
+    (`conv3d_wino4[<dtype>] device`: the kernels of a call by
+    torch.profiler, median of N_DEVICE). Only the wrappers' public signatures are
+    used, so any version of the package can be timed. Returns
     {"<kernel>[<dtype>]": ms}."""
     from v2ce_toolbox_tpu_torch.config import ModelConfig
     from v2ce_toolbox_tpu_torch.models import V2ce3d, layers
@@ -1551,6 +1640,14 @@ def conv_times(torch, np, dev, n=N_TIMED):
             kw = (torch.rand((3, 3, 3, xshape[-1], cout), generator=g, device=dev)
                   * 0.05).to(dtype)
             add(f"conv3d_wino4[{dname}]", lambda: conv3d_wino4.conv3d_wino4(xw, kw))
+            # the same calls on the device alone: every kernel a call
+            # launches, by the profiler (the median of N_DEVICE calls)
+            with torch.no_grad():
+                dev_ms = [port_launches(lambda: conv3d_wino4.conv3d_wino4(xw, kw), torch)
+                          for _ in range(N_DEVICE)]
+            if None not in dev_ms:
+                label = f"conv3d_wino4[{dname}] device"
+                times[label] = times.get(label, 0.0) + statistics.median(d[2] for d in dev_ms)
             del xw, kw
         torch.cuda.empty_cache()
     return times

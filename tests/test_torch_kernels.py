@@ -9,8 +9,8 @@ FastFlowNet's cost volume (K8 correlation) at its five pyramid levels
 within 1e-5 (the same reason). The probe harness's kernels: K2w (K2's
 kernel through its own entry) identical; K11 conv3d_quad within the conv
 bounds (its twin sums in f64); K12 conv3d_wino4 within 5e-5 with an f32
-output (WINO_TOL) and 8e-3 with a bf16 one, 'nodot' identical; K7 and
-K13-K16 identical.
+output (WINO_TOL) and 8e-3 with a bf16 one, 'nodot' identical, and its
+fused bf16 route's scratch without Z; K7 and K13-K16 identical.
 
 This file imports no jax, so it also runs where jax is not installed:
 
@@ -402,18 +402,53 @@ def test_conv3d_quad_equals_twin_on_card(b, l, h, w, c, co, strided, dtype, out_
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype,out_dtype", CONV_DTYPES)
-@pytest.mark.parametrize("shape,co", [((1, 8, 9, 7, 16), 8), ((2, 5, 10, 13, 20), 12),
-                                      ((1, 16, 130, 173, 192), 64)])
+@pytest.mark.parametrize("shape,co", [
+    ((1, 8, 9, 7, 16), 8), ((2, 5, 10, 13, 20), 12), ((1, 16, 130, 173, 192), 64),
+    # the fused bf16 kernel's edges: W past one and two 64-row runs, L and
+    # H not multiples of 4, C not a multiple of BK (two K steps, the last
+    # ragged), Co of one partial, one full and more than two 32-wide N tiles
+    ((1, 6, 7, 70, 40), 24), ((2, 5, 10, 130, 20), 72), ((1, 8, 9, 65, 96), 64),
+    ((1, 4, 5, 64, 8), 8), ((1, 3, 6, 129, 64), 32)])
 def test_conv3d_wino4_equals_twin_on_card(shape, co, dtype, out_dtype, no_tf32):
     dev = _cuda_or_skip()
     g = torch.Generator(device=dev).manual_seed(shape[-1] * co)
     x = (torch.rand(shape, generator=g, device=dev) - 0.5).to(dtype)
     k = (torch.rand((3, 3, 3, shape[-1], co), generator=g, device=dev) * 0.05).to(dtype)
-    got = conv3d_wino4.conv3d_wino4(x, k, out_dtype)
+    if dtype == torch.bfloat16:
+        # the fused kernel's live-step table: the twin's on U (36, 3, Co, C)
+        plan = conv3d_wino4.fused_plan(shape[-1], co)
+        got = _kernel_live_table(lambda: conv3d_wino4.conv3d_wino4(x, k, out_dtype),
+                                 conv3d_wino4.gemm_weights(k, dtype), (plan["bn"], plan["bk"]))
+    else:
+        got = conv3d_wino4.conv3d_wino4(x, k, out_dtype)
     want = conv3d_wino4._conv3d_wino4_torch(x, k, out_dtype)
     assert got.dtype == want.dtype == out_dtype and got.shape == want.shape
     err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
     assert torch.isfinite(got.float()).all() and err <= WINO_TOL[out_dtype], err
+
+
+@pytest.mark.requires_cuda
+def test_conv3d_wino4_bf16_allocates_no_z_on_card():
+    # at the probe's dec3_conv1 shape, bf16 'full' allocates its output, U,
+    # the live table and V (36, M, Cv) bf16, with 64 MB to spare: the
+    # three-launch route's Z (36, M, 3 Co) f32, 1.25 GB here, does not fit
+    dev = _cuda_or_skip()
+    (b, l, h, w, c), co = (1, 16, 260, 346, 96), 32
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = (torch.rand((b, l, h, w, c), generator=g, device=dev) - 0.5).bfloat16()
+    k = (torch.rand((3, 3, 3, c, co), generator=g, device=dev) * 0.05).bfloat16()
+    plan = conv3d_wino4.fused_plan(c, co)
+    m = b * -(-l // 4) * -(-h // 4) * (w + 2)
+    allowed = (b * l * h * w * co * 4 + 36 * 3 * co * c * 2
+               + 36 * plan["n_tiles"] * 3 * plan["nk"] + 36 * m * c * 2 + (64 << 20))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = conv3d_wino4.conv3d_wino4(x, k)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    assert out.shape == (b, l, h, w, co) and torch.isfinite(out).all()
+    assert rise <= allowed, (rise, allowed)
 
 
 @pytest.mark.requires_cuda

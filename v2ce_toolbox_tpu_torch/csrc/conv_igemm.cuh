@@ -2,9 +2,12 @@
 // K9 (csrc/conv3d.cu: 27 taps, one output plane), K10
 // (csrc/decoder_conv.cu: 18 taps per output H-parity, two planes), K11
 // (csrc/conv3d_quad.cu: a VALID conv over any tap box, the output box
-// smaller than the input's) and K12's batched product
-// (csrc/wino4.cu: one tap, 36 planes, each with its own input matrix).
-// The kernels live in csrc/conv_igemm.cu, compiled once for all entries.
+// smaller than the input's) and K12's f32 batched product
+// (csrc/wino4.cu: one tap, 36 planes, each with its own input matrix; its
+// bf16 route has a fused kernel of its own on the same building blocks).
+// The kernels live in csrc/conv_igemm.cu, compiled once for all entries;
+// the Hopper building blocks (mbarriers, TMA, wgmma, the live-step
+// pre-pass, the tensor-map encoder) in csrc/hopper.cuh.
 //
 //   out[b, l, h, p, w, n] = sum_t sum_c xp[b, l + dl_t, h + dh_pt, w + dw_t, c]
 //                                         * wt[p, t, n, c]
@@ -55,7 +58,7 @@
 //     A step whose weights are all +-0 adds products that are all +-0, and
 //     skipping it leaves every finite running sum unchanged (up to the sign
 //     of a zero sum). The skip applies to every entry and to any weights
-//     (K9, K10, K11, K12's U), not only to the folds' structural zeros:
+//     (K9, K10, K11), not only to the folds' structural zeros:
 //     wherever a whole BN x BK block is zero, an inf or NaN input that the
 //     step would have multiplied by 0 (0 * inf = NaN) is dropped, and the
 //     output stays finite where an IEEE conv (the twins, the JAX kernels)
@@ -65,8 +68,7 @@
 //     (float2 or bf16x2 a thread), masked to the output box and Co.
 //   * The boxes the rule picks for a 16-frame window: 260x346 (32, 4, 1)
 //     pads the rows by 1.7%, 130x173 (16, 4, 2) by 3.3%, 65x87 (8, 2, 8)
-//     by 2.7%, 33x44 (4, 2, 16) by 3.0%, 17x22 (8, 1, 16) by 9.1%; K12's
-//     product rows (128, 1, 1) by under 0.3%.
+//     by 2.7%, 33x44 (4, 2, 16) by 3.0%, 17x22 (8, 1, 16) by 9.1%.
 // What bounds it on an H100: the L2-to-shared-memory traffic, not the
 // tensor cores. A step loads (128 + BN) x BK x 2 bytes for 128 x BN x BK
 // multiply-adds, and each of the taps loads its own shifted A box: at the

@@ -30,9 +30,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # add into an FMA there; the conv kernels (K9-K11, whose GEMM core
 # conv_igemm.cu the four conv entries share) and the cost volume (K8) are
 # held to a tolerance and keep nvcc's default contraction, as do K12
-# (its transforms and collapses, held bit for bit to the twin, use the
-# __fmul_rn/__fadd_rn intrinsics, which nvcc never contracts), the copies
-# (K7, K15, K16) and the integer probes (K13, K14).
+# (its transforms and collapses, which round as the twin's do, use the
+# __fmul_rn/__fadd_rn intrinsics and bf16x2 mul.rn/add.rn instructions,
+# which nvcc never contracts), the copies (K7, K15, K16) and the integer
+# probes (K13, K14).
 _SOURCES = {
     "compact_rows.cu": ("-fmad=false",),
     "merge_rows.cu": ("-fmad=false",),
@@ -47,7 +48,7 @@ _SOURCES = {
     "stream_copy.cu": (),
     "roofline.cu": (),
 }
-_HEADERS = ("common.cuh", "conv_igemm.cuh")
+_HEADERS = ("common.cuh", "conv_igemm.cuh", "hopper.cuh")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,8 +69,10 @@ _SIGNATURES = {
     "v2ce_correlation": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "v2ce_conv3d_quad": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P],
-    "v2ce_conv3d_wino4": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _P],
+    "v2ce_conv3d_wino4": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P],
+    "v2ce_conv3d_wino4_bf16": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P],
     "v2ce_layout_barrier": [_P, _P, _L, _L, _P],
     "v2ce_stream_copy": [_P, _P, _L, _L, _L, _P],
     "v2ce_stream_copy_row": [_P, _P, _L, _L, _P],

@@ -1,5 +1,6 @@
 """K12: the 3x3x3 stride-1 'same' conv as Winograd F(4,3) over L and H,
-the W taps folded into the product's N = 3*Co.
+the W taps folded into the product's N = 3*Co (the twin, the three-launch
+route) or into its reduction (the fused bf16 route).
 
 Counterpart of `v2ce_toolbox_tpu/ops/winograd_pallas.py:conv3d_wino4`, with
 its layout (x (B, L, H, W, C), k (3, 3, 3, C, Co), f32 or bf16 in, f32
@@ -25,8 +26,15 @@ when cp < 3*Co, and is reproduced bit for bit in f32; 'noinv' raises, since
 the JAX kernel's own 'noinv' raises (below).
 
 On a CPU tensor `conv3d_wino4` runs the plain twin; on a CUDA tensor it
-launches `csrc/wino4.cu` (input transform, the 36 products through the
-implicit GEMM of `csrc/conv_igemm.cuh`, output transform), or raises.
+launches `csrc/wino4.cu`, or raises. bf16 inputs with ablate='full' take
+the fused route: the input transform writes V, then one kernel runs the
+36 products on wgmma and the collapses in registers, so Z never reaches
+device memory; it adds the three W taps inside each product (dw first),
+where the twin adds them after the collapses: the same function summed in
+another order, inside the f32 tolerance. f32 inputs and ablate='nodot'
+take the three-launch route (input transform, the 36 products Z through
+the f32 implicit GEMM of `csrc/conv_igemm.cuh` or 'nodot''s lane copy,
+output transform), so 'nodot' times that route, not the fused one.
 """
 
 from __future__ import annotations
@@ -36,7 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from v2ce_toolbox_tpu_torch.ops import _cuda
-from v2ce_toolbox_tpu_torch.ops.conv3d import CHANNEL_ALIGN, DTYPES, check_inputs, gemm_args
+from v2ce_toolbox_tpu_torch.ops.conv3d import (CHANNEL_ALIGN, DTYPES, check_inputs, gemm_args,
+                                                kernel_operand)
 
 launches = {"conv3d_wino4": 0}
 
@@ -65,6 +74,19 @@ AT4 = np.array([
     [0, 1, -1, 8, -8, 1],
 ], np.float32)
 _M = 4                          # outputs per 1-D tile
+# the fused bf16 kernel's block (csrc/wino4.cu): 64 output W positions (one
+# m64 wgmma tile) x 32 output channels; a ring of stages, each one box of 72
+# V rows (the three dw taps read rows dw .. dw + 63) in a 1024-byte aligned
+# region and three U boxes, in 160 KB of shared memory, at most 12; the f32
+# register sets of a consumer thread (z, two step sums, two p, four of its
+# eight y; 16 registers each) and the four y sets it parks in shared
+# memory; its static shared memory (24 mbarriers)
+FUSED_ROWS, FUSED_BN, FUSED_AROWS = 64, 32, 72
+FUSED_RING_BYTES, FUSED_MAX_STAGES = 160 * 1024, 12
+FUSED_SETS, FUSED_PARKED_SETS = 9, 4
+FUSED_STATIC_SMEM = 24 * 8
+SMEM_LIMIT = 227 * 1024         # a block's shared memory on sm_90
+CONSUMER_REGISTERS = 232        # the consumer warpgroups' setmaxnreg
 ABLATE = {"full": 0, "nodot": 1}
 NOINV_FAULT = ("conv3d_wino4: ablate='noinv' is not ported: the JAX kernel's own 'noinv' "
                "raises (winograd_pallas.py:157-159 leaves p[a] None for the collapse at "
@@ -76,14 +98,57 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+_G4_ON = {}                     # device -> G4 there
+
+
+def _g4(device: torch.device) -> torch.Tensor:
+    """G4 on `device`, copied there once: a call then makes no host copy,
+    which would wait for the stream and cannot be captured in a CUDA graph."""
+    if device not in _G4_ON:
+        _G4_ON[device] = torch.from_numpy(G4).to(device)
+    return _G4_ON[device]
+
+
 def filter_transform_lh(k: torch.Tensor) -> torch.Tensor:
     """(3, 3, 3, C, Co) -> U (6, 6, C, 3*Co) in f32: U[xi, lam, :, (dw, co)] =
     sum_{dl, dh} G[xi, dl] G[lam, dh] k[dl, dh, dw] (`winograd_pallas.py:196`)."""
-    # non_blocking: a pageable copy is staged at once, without the stream
-    # sync of a blocking one, so the call does not wait for earlier work
-    g = torch.from_numpy(G4).to(k.device, non_blocking=True)
-    u = torch.einsum("xa,yb,abwio->xyiwo", g, g, k.float())
+    g = _g4(k.device)
+    # over dl, then dh: the order opt_einsum picks for the three-operand
+    # einsum (and XLA for the JAX function), without its path search a call
+    u = torch.einsum("yb,xbwio->xyiwo", g, torch.einsum("xa,abwio->xbwio", g, k.float()))
     return u.reshape(6, 6, k.shape[3], 3 * k.shape[4])
+
+
+def gemm_weights(k: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """U as the fused kernel reads it, the conv core's wt[p, t, n, c]
+    layout: (36, 3, Co, C) with [6 xi + lam, dw, co, c] =
+    `filter_transform_lh(k)`[xi, lam, c, dw * Co + co], computed in f32 and
+    cast to `dtype`."""
+    c, co = k.shape[3], k.shape[4]
+    return filter_transform_lh(k).reshape(36, c, 3, co).permute(0, 2, 3, 1).to(dtype)
+
+
+def fused_plan(c: int, co: int) -> dict:
+    """The fused bf16 kernel's tile for C input and Co output channels:
+    rows and BN of a block, the K step BK (64 channels where the padded C
+    is a multiple of 64, else 32) and its count nk, the N tiles, the ring
+    stages, the shared memory a block takes (1024-byte alignment, ring,
+    parked y sets, each N tile's live counts and K slices, static) and the
+    f32 accumulator registers of a consumer thread (a set is an m64 x BN
+    fragment, BN/2 registers). `csrc/wino4.cu` checks the same shared
+    memory at launch."""
+    cv = -(-c // CHANNEL_ALIGN) * CHANNEL_ALIGN
+    n_tiles = -(-co // FUSED_BN)
+    bk = 64 if cv % 64 == 0 else 32
+    nk = -(-cv // bk)
+    stage = -(-FUSED_AROWS * bk * 2 // 1024) * 1024 + 3 * FUSED_BN * bk * 2
+    stages = min(FUSED_MAX_STAGES, FUSED_RING_BYTES // stage)
+    parked = 2 * FUSED_PARKED_SETS * FUSED_BN // 2 * 128 * 4   # two warpgroups' sets, f32
+    return dict(rows=FUSED_ROWS, bn=FUSED_BN, bk=bk, nk=nk, n_tiles=n_tiles, stages=stages,
+                register_sets=FUSED_SETS, registers=FUSED_SETS * FUSED_BN // 2,
+                parked_bytes=parked,
+                smem_bytes=(1024 + stages * stage + parked + 36 * n_tiles * (4 + nk)
+                            + FUSED_STATIC_SMEM))
 
 
 def channel_pad(c: int) -> int:
@@ -175,6 +240,28 @@ def _conv3d_wino4_torch(x: torch.Tensor, k: torch.Tensor,
     return out.reshape(b, _M * nl, _M * nh, w, co)[:, :l, :h].to(out_dtype)
 
 
+def _conv3d_wino4_fused(x: torch.Tensor, k: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """bf16 'full' on the card: the input transform and the fused kernel
+    (and the live-step pre-pass). Scratch: V (36, M, Cv) bf16 and the live
+    table; no Z."""
+    b, l, h, w, c = x.shape
+    co = k.shape[4]
+    plan = fused_plan(c, co)
+    ut = kernel_operand(gemm_weights(k, x.dtype), 2, 3)       # (36, 3, Cop, Cv)
+    cop, cv = ut.shape[2], ut.shape[3]
+    m = b * -(-l // _M) * -(-h // _M) * (w + 2)
+    v = torch.empty((36, m, cv), dtype=x.dtype, device=x.device)
+    out = torch.empty((b, l, h, w, co), dtype=out_dtype, device=x.device)
+    live, live_bytes, _, _ = gemm_args(x, 36, 3, cv, cop, tiles=(plan["bn"], plan["bk"]))
+    with torch.cuda.device(x.device):
+        err = _cuda.lib().v2ce_conv3d_wino4_bf16(
+            x.data_ptr(), ut.data_ptr(), v.data_ptr(), out.data_ptr(), live.data_ptr(),
+            live_bytes, b, l, h, w, c, cv, co, cop, plan["bk"], plan["stages"],
+            DTYPES[out_dtype], _cuda.stream_of(x))
+    _cuda.check(err, "conv3d_wino4")
+    return out
+
+
 def conv3d_wino4(x: torch.Tensor, k: torch.Tensor, out_dtype: torch.dtype = torch.float32,
                  lt: int = 8, th: int = 8, ablate: str = "full") -> torch.Tensor:
     """3x3x3 stride-1 'same' conv via Winograd F(4,3) over L and H (K12).
@@ -189,9 +276,14 @@ def conv3d_wino4(x: torch.Tensor, k: torch.Tensor, out_dtype: torch.dtype = torc
         'noinv' raises ValueError.
     Returns:
       (B, L, H, W, Co) in out_dtype.
-    With bf16 inputs on the card the kernel skips every block of U that
-    is all +-0, so an inf or NaN input that only such a block meets gives a
-    finite output where the twin gives NaN (`csrc/conv_igemm.cuh`).
+    On the card, bf16 inputs with ablate='full' run the fused kernel
+    (input transform, then the 36 products and the collapses in one
+    kernel, Z kept on chip, the W taps summed first); f32 inputs and
+    'nodot' run the three-launch route through V and Z in device memory,
+    so the probe's 'nodot' times that route. The fused kernel skips every
+    step whose U blocks of all three W taps are all +-0, so an inf or NaN
+    input that only such a step meets gives a finite output where the twin
+    gives NaN (`csrc/conv_igemm.cuh`).
     """
     _check(x, k, lt, th, ablate)
     if x.device.type == "cpu":
@@ -200,29 +292,45 @@ def conv3d_wino4(x: torch.Tensor, k: torch.Tensor, out_dtype: torch.dtype = torc
     b, l, h, w, c = x.shape
     co = k.shape[4]
     nl, nh = -(-l // _M), -(-h // _M)
-    cv = -(-c // CHANNEL_ALIGN) * CHANNEL_ALIGN
-    n = 3 * co
-    npad = -(-n // CHANNEL_ALIGN) * CHANNEL_ALIGN
     m = b * nl * nh * (w + 2)            # rows of each of the 36 products
     if m >= 1 << 31 or b * l * h * w >= 1 << 31:
         raise ValueError(f"conv3d_wino4: {tuple(x.shape)} exceeds the kernel's limits")
-    # U as (36, N, C) in x's dtype: every GEMM row contiguous, zero padded
-    ut = filter_transform_lh(k).to(x.dtype).permute(0, 1, 3, 2).reshape(36, n, c)
-    ut = F.pad(ut, (0, cv - c, 0, npad - n)).contiguous()
     xc = x.contiguous()
+    if x.dtype == torch.bfloat16 and ablate == "full":
+        out = _conv3d_wino4_fused(xc, k, out_dtype)
+    else:
+        out = _conv3d_wino4_three_launches(xc, k, out_dtype, ablate)
+    launches["conv3d_wino4"] += 1
+    return out
+
+
+def _conv3d_wino4_three_launches(x: torch.Tensor, k: torch.Tensor, out_dtype: torch.dtype,
+                                 ablate: str) -> torch.Tensor:
+    """f32 'full' and 'nodot' on the card: the input transform, the 36
+    products (or 'nodot''s lane copy) and the output transform, with V and
+    Z through device memory."""
+    b, l, h, w, c = x.shape
+    co = k.shape[4]
+    m = b * -(-l // _M) * -(-h // _M) * (w + 2)
+    cv = -(-c // CHANNEL_ALIGN) * CHANNEL_ALIGN
+    n = 3 * co
+    npad = -(-n // CHANNEL_ALIGN) * CHANNEL_ALIGN
+    if ablate == "full":
+        # U as (36, N, C) in f32: every GEMM row contiguous, zero padded
+        ut = filter_transform_lh(k).permute(0, 1, 3, 2).reshape(36, n, c)
+        ut = F.pad(ut, (0, cv - c, 0, npad - n)).contiguous()
+        lanes = None
+    else:
+        ut = None
+        lanes = torch.tensor(nodot_lanes(c, co), dtype=torch.int32, device=x.device)
     v = torch.empty((36, m, cv), dtype=x.dtype, device=x.device)
     z = torch.empty((36, m, npad), dtype=torch.float32, device=x.device)
-    lanes = (torch.tensor(nodot_lanes(c, co), dtype=torch.int32, device=x.device)
-             if ablate == "nodot" else None)
     out = torch.empty((b, l, h, w, co), dtype=out_dtype, device=x.device)
-    live, live_bytes, bn, bk = gemm_args(x, 36, 1, cv, npad)
     with torch.cuda.device(x.device):
         err = _cuda.lib().v2ce_conv3d_wino4(
-            xc.data_ptr(), ut.data_ptr(), v.data_ptr(), z.data_ptr(),
-            lanes.data_ptr() if lanes is not None else None,
-            out.data_ptr(), live if live is None else live.data_ptr(), live_bytes,
-            b, l, h, w, c, cv, co, npad, bn, bk, ABLATE[ablate],
-            DTYPES[x.dtype], DTYPES[out_dtype], _cuda.stream_of(x))
+            x.data_ptr(), ut.data_ptr() if ut is not None else None, v.data_ptr(),
+            z.data_ptr(), lanes.data_ptr() if lanes is not None else None, out.data_ptr(),
+            b, l, h, w, c, cv, co, npad, ABLATE[ablate], DTYPES[x.dtype], DTYPES[out_dtype],
+            _cuda.stream_of(x))
     _cuda.check(err, "conv3d_wino4")
-    launches["conv3d_wino4"] += 1
     return out

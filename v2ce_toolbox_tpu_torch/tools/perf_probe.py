@@ -293,7 +293,11 @@ def probe_wino_pallas(dev, shapes=WINO_SHAPES,
 
 def probe_wino_ablate(dev, shape=(1, 16, 260, 346, 96), cout=32):
     """Stage-cost attribution for the Winograd kernel: full vs noinv (which
-    raises, as the JAX kernel's does) vs nodot (z faked from V)."""
+    raises, as the JAX kernel's does) vs nodot (z faked from V). On the card
+    'nodot' runs the three-launch route (input transform, Z written and read
+    in f32, output transform) in both dtypes, while bf16 'full' runs the
+    fused kernel, which keeps Z on chip: bf16 'nodot' against 'full' times
+    that route against the fused one, not the products alone."""
     from v2ce_toolbox_tpu_torch.ops.conv3d_wino4 import conv3d_wino4
 
     rng = np.random.RandomState(0)
