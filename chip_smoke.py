@@ -6,11 +6,14 @@
 
 The second form times the four kernels of the shared conv core (K9 and
 K10 per research-model window, K11 over the probe's `quad` and `quad_s2`
-layers, K12 over the `wino_pallas` shapes; bf16 and f32) with the timing
-code of this file and the package of each checkout TREE, in turns, each in
-its own process with its own kernel build: two versions compared on one
-card (e.g. parent, change, change, parent), each kernel's mean against the
-first TREE's. K12 is also timed on the device alone (its kernels by
+layers, K12 over the `wino_pallas` shapes; bf16 and f32), K8 on all 81
+taps and `FastFlowNet.cost_volume` at FastFlowNet's five levels, one
+16-pair `fastflownet_pair_flow` call, and the copies K7, K15 and K16 on
+the device beside `clone()` (`flow_times`), with the timing code of this
+file and the package of each checkout TREE, in turns, each in its own
+process with its own kernel build: two versions compared on one card
+(e.g. parent, change, change, parent), each label's runs and mean against
+the first TREE's. K12 is also timed on the device alone (its kernels by
 torch.profiler), so a change in the wrapper's host work can be told from
 one in the kernels.
 
@@ -75,8 +78,11 @@ Phases, any failure exits non-zero before the result lines:
      FastFlowNet on seeded random weights: (a) K8 correlation against its
      twin on the five pyramid levels of one 16-pair call at 260x346, within
      CORR_REL_TOL, with kernel, twin and bound times (CUDA events around
-     one call, and the device alone from CUDA-graph replays), and a
-     torch.profiler breakdown of one pair-flow call; (b) FastFlowNet on the
+     one call, and the device alone from CUDA-graph replays), its entry
+     with FastFlowNet's 53 taps written into a wider buffer identical to
+     the 81-tap kernel's planes (the channels around them untouched) and
+     timed on the device, and a torch.profiler breakdown of one pair-flow
+     call; (b) FastFlowNet on the
      card against the CPU on 2 pairs (TF32 off), within FLOW_REL_TOL;
      (c) the converter on a synthetic 49-frame 260x346 recording (3
      packets) with the weights from a `.pt` as `--fastflownet_ckpt` loads
@@ -101,7 +107,7 @@ Phases, any failure exits non-zero before the result lines:
      layers (from the kernel's table, held against the twin's, as in 8),
      and for K2w, K7 and
      K13-K16 the device ms from CUDA-graph replays (for K7, K15 and K16
-     also clone()'s); for each K12 call its device ms from CUDA-graph
+     also clone()'s, and for K15 and K16 both read + write rates); for each K12 call its device ms from CUDA-graph
      replays, the port's kernels it launches, counted by torch.profiler
      (bf16: the input transform, the live-step pre-pass and the fused
      kernel, one each; f32: the input transform, the product and the
@@ -1023,11 +1029,15 @@ def data_phase(torch, np, dev, counted, smi):
     if len(calls) != 5:
         raise AssertionError(f"one FastFlowNet call made {len(calls)} cost volumes, not 5")
     r = dict(ms=0.0, plain_ms=0.0, device_ms=0.0, plain_device_ms=0.0, bound_ms=0.0,
-             bound_by="bytes", library_ms=None)
+             bound_by="bytes", library_ms=None, taps_device_ms=0.0, levels=[])
     err = 0.0
     t_ops = t_bytes = 0.0
-    for a, k in calls:
+    for a, kw in calls:
+        # the model's call keeps FastFlowNet's taps and writes them into its
+        # decoder input; the kernel is held and timed on all 81 taps, and
+        # its taps entry against those planes bit for bit
         f1, f2 = a[:2]
+        k = {key: v for key, v in kw.items() if key not in ("taps", "out")}
         got, want = correlation.correlation(*a, **k), correlation._correlation_torch(*a, **k)
         torch.cuda.synchronize()
         rel = rel_err(got, want)
@@ -1035,10 +1045,24 @@ def data_phase(torch, np, dev, counted, smi):
         if not (torch.isfinite(got).all() and rel <= CORR_REL_TOL):
             raise AssertionError(f"correlation {tuple(f1.shape)}: {rel:.3e} from its twin "
                                  f"(limit {CORR_REL_TOL:g})")
+        taps = kw.get("taps")
+        if taps is None or "out" not in kw:
+            raise AssertionError("FastFlowNet's cost volume did not keep its taps in place")
+        dec = torch.full((f1.shape[0], len(taps) + 34, *f1.shape[2:]), -7.0, device=f1.device)
+        sub = correlation.correlation(*a, **k, taps=taps, out=dec[:, :len(taps)])
+        torch.cuda.synchronize()
+        if not (torch.equal(sub, got[:, list(taps)]) and bool((dec[:, len(taps):] == -7).all())):
+            raise AssertionError(f"correlation {tuple(f1.shape)}: the taps written in place "
+                                 "differ from the 81-tap kernel's planes")
         tk, tp = time_pair(lambda: correlation.correlation(*a, **k),
                            lambda: correlation._correlation_torch(*a, **k), torch)
         dk = graph_ms(lambda: correlation.correlation(*a, **k), torch)
         dp = graph_ms(lambda: correlation._correlation_torch(*a, **k), torch, reps=1)
+        dt = graph_ms(lambda: correlation.correlation(*a, **k, taps=taps,
+                                                      out=dec[:, :len(taps)]), torch)
+        r["taps_device_ms"] += dt
+        r["levels"].append(dict(shape=list(f1.shape), device_ms=dk, taps_device_ms=dt,
+                                plan=correlation.plan(*f1.shape, k.get("max_displacement", 4))))
         # each input read once, the 81 planes written once; a multiply-add
         # per channel, tap and pixel
         flops = 2 * f1.numel() * got.shape[1]
@@ -1046,7 +1070,8 @@ def data_phase(torch, np, dev, counted, smi):
         t_ops += flops / PEAK_FLOPS["float32"] * 1e3
         t_bytes += nbytes([f1, f2, got]) / HBM_BYTES_PER_S * 1e3
         log(f"[data] correlation {tuple(f1.shape)} -> {tuple(got.shape)}: rel err {rel:.3e} "
-            f"(limit {CORR_REL_TOL:g}); kernel {tk:.4f} ms ({dk:.4f} on the device), plain "
+            f"(limit {CORR_REL_TOL:g}); the {len(taps)} taps in place identical; kernel "
+            f"{tk:.4f} ms ({dk:.4f} on the device; the taps in place {dt:.4f}), plain "
             f"{tp:.4f} ms ({dp:.4f}), bound {tb:.4f} ms ({by})")
         r["ms"] += tk
         r["plain_ms"] += tp
@@ -1055,7 +1080,8 @@ def data_phase(torch, np, dev, counted, smi):
         r["bound_ms"] += tb
     r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
     log(f"[data] correlation per {PAIRS}-pair call (5 levels): kernel {r['ms']:.4f} ms "
-        f"({r['device_ms']:.4f} on the device), plain {r['plain_ms']:.4f} ms "
+        f"({r['device_ms']:.4f} on the device; the taps in place {r['taps_device_ms']:.4f}), "
+        f"plain {r['plain_ms']:.4f} ms "
         f"({r['plain_device_ms']:.4f}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
     del calls
     profile_pair_flow(torch, lambda: pair_flow(images[:PAIRS], images[1:PAIRS + 1]), smi)
@@ -1426,9 +1452,12 @@ def probe_phase(torch, np, dev, counted, smi):
         tk = add_exact(name, f"{tuple(xr.shape)} int32", lambda: fn(xr),
                        lambda: roofline._stream_copy_torch(xr), xr.clone, copy_bound)
         rates[name] = 2 * nbytes(xr) / (tk / 1e3)
-        results[name]["bytes_per_s"] = rates[name]
+        clone_rate = 2 * nbytes(xr) / (results[name]["library_device_ms"] / 1e3)
+        results[name].update(bytes_per_s=rates[name], library_bytes_per_s=clone_rate)
         log(f"[probe] {name}: {rates[name] / 1e9:.1f} GB/s read + write on the device, "
-            f"{rates[name] / HBM_BYTES_PER_S:.1%} of the nominal 3.35 TB/s [{smi}]")
+            f"{rates[name] / HBM_BYTES_PER_S:.1%} of the nominal 3.35 TB/s; clone() "
+            f"{clone_rate / 1e9:.1f} GB/s, the kernel's time {clone_rate / rates[name]:.3f}x "
+            f"clone()'s [{smi}]")
     del xr
     torch.cuda.empty_cache()
     for r in results.values():
@@ -1572,7 +1601,8 @@ def main():
                                              "issue_el_ops_per_s", "bytes_per_s",
                                              "live_steps", "live_steps_s122",
                                              "f32_rel_err_vs_f64", "calls",
-                                             "library_device_ms") if k in r}})
+                                             "library_device_ms", "library_bytes_per_s",
+                                             "taps_device_ms", "levels") if k in r}})
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "stage2_roofline": roofline_rates,
                       "card": smi}))
@@ -1590,9 +1620,9 @@ def conv_times(torch, np, dev, n=N_TIMED):
     strided wrapper's fold alone over those 4), K12 over the 3
     `wino_pallas` shapes, and those K12 calls on the device alone
     (`conv3d_wino4[<dtype>] device`: the kernels of a call by
-    torch.profiler, median of N_DEVICE). Only the wrappers' public signatures are
-    used, so any version of the package can be timed. Returns
-    {"<kernel>[<dtype>]": ms}."""
+    torch.profiler, median of N_DEVICE); then `flow_times`. Only the
+    wrappers' public signatures are used, so any version of the package can
+    be timed. Returns {label: ms}."""
     from v2ce_toolbox_tpu_torch.config import ModelConfig
     from v2ce_toolbox_tpu_torch.models import V2ce3d, layers
     from v2ce_toolbox_tpu_torch.ops import conv3d, conv3d_quad, conv3d_wino4, decoder
@@ -1650,6 +1680,79 @@ def conv_times(torch, np, dev, n=N_TIMED):
                 times[label] = times.get(label, 0.0) + statistics.median(d[2] for d in dev_ms)
             del xw, kw
         torch.cuda.empty_cache()
+    times.update(flow_times(torch, np, dev, n))
+    return times
+
+
+# FastFlowNet's five cost-volume levels for 260x346 frames padded to
+# 320x384, 16 pairs a call: (N, C, H, W)
+FLOW_LEVELS = ((PAIRS, 32, 80, 96), (PAIRS, 64, 40, 48), (PAIRS, 64, 20, 24),
+               (PAIRS, 64, 10, 12), (PAIRS, 64, 5, 6))
+
+
+def flow_times(torch, np, dev, n=N_TIMED):
+    """For `--compare-conv`, through public signatures only (so the parent's
+    package runs them too): K8 on all 81 taps at each of FastFlowNet's five
+    levels (`correlation[<H>x<W>]`, CUDA events, median of n; `... device`
+    from CUDA-graph replays) and summed over them; `FastFlowNet.cost_volume`
+    (the taps FastFlowNet keeps) the same way; one 16-pair
+    `fastflownet_pair_flow` call on uint8 frames (its own clock: the call
+    returns numpy), and its kernels' device time by torch.profiler; K7,
+    K15 and K16 on the device by graph replays, each
+    beside `clone()` of the same input. Returns {label: ms}."""
+    from v2ce_toolbox_tpu_torch.data import mvsec
+    from v2ce_toolbox_tpu_torch.models.fastflownet import FastFlowNet, init_fastflownet
+    from v2ce_toolbox_tpu_torch.ops import barrier, correlation, roofline
+
+    times = {}
+
+    def add(label, ms):
+        times[label] = times.get(label, 0.0) + ms
+
+    net = FastFlowNet()
+    init_fastflownet(net, 0)
+    net.to(dev).eval()
+    with torch.no_grad():
+        for shape in FLOW_LEVELS:
+            g = torch.Generator(device=dev).manual_seed(shape[1] * shape[2])
+            f1 = torch.randn(shape, generator=g, device=dev)
+            f2 = torch.randn(shape, generator=g, device=dev)
+            lvl = f"{shape[2]}x{shape[3]}"
+            for name, fn in (("correlation", lambda: correlation.correlation(f1, f2, 4)),
+                             ("cost_volume", lambda: net.cost_volume(f1, f2))):
+                t, d = time_one(fn, torch, n), graph_ms(fn, torch)
+                add(f"{name}[{lvl}]", t)
+                add(f"{name}[{lvl}] device", d)
+                add(f"{name}[5 levels]", t)
+                add(f"{name}[5 levels] device", d)
+            del f1, f2
+    rng = np.random.RandomState(0)
+    frames = rng.randint(0, 256, (PAIRS + 1, H, W)).astype(np.uint8)
+    pair_flow = mvsec.fastflownet_pair_flow(None, seed=0, device=DEVICE)
+    pair_flow(frames[:-1], frames[1:])                   # warm-up (cuDNN, allocator)
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        pair_flow(frames[:-1], frames[1:])               # numpy out: the card has finished
+        walls.append((time.perf_counter() - t0) * 1e3)
+    times[f"fastflownet_pair_flow[{PAIRS} pairs]"] = statistics.median(walls)
+    # its kernels on the device alone (torch.profiler, median of N_DEVICE
+    # calls): the host's share of the call varies from run to run
+    prof = [port_launches(lambda: pair_flow(frames[:-1], frames[1:]), torch)
+            for _ in range(N_DEVICE)]
+    if None not in prof:
+        times[f"fastflownet_pair_flow[{PAIRS} pairs] device"] = statistics.median(
+            d[2] for d in prof)
+    vox = torch.rand((1, 16, H, W, 20), device=dev)
+    xr = torch.from_numpy(rng.randint(0, 1 << 30, (144, -(-(2 * H * W) // 16384), 128, 128))
+                          .astype(np.int32)).to(dev)
+    for label, fn, x in (("layout_barrier", barrier.layout_barrier, vox),
+                         ("stream_copy", roofline.stream_copy, xr),
+                         ("stream_copy_row", roofline.stream_copy_row, xr)):
+        times[f"{label} device"] = graph_ms(lambda: fn(x), torch)
+        times[f"{label} clone device"] = graph_ms(x.clone, torch)
+    del vox, xr
+    torch.cuda.empty_cache()
     return times
 
 
@@ -1696,8 +1799,8 @@ def compare_conv(trees):
             by_tree.setdefault(os.path.realpath(tree), []).append(value(ms))
         means = {t: statistics.mean(v) for t, v in by_tree.items()}
         log(f"[compare-conv] {label}: " + ", ".join(
-            f"{os.path.relpath(t, ROOT)} {m:.4f} ms ({m / means[base] - 1:+.1%})"
-            for t, m in means.items()))
+            f"{os.path.relpath(t, ROOT)} {m:.4f} ms ({m / means[base] - 1:+.1%}; runs "
+            f"{', '.join(f'{x:.4f}' for x in by_tree[t])})" for t, m in means.items()))
 
     for label in sorted(runs[0][1]):
         report(label, lambda ms: ms[label])

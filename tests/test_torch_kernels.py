@@ -6,11 +6,14 @@ fused_up_concat_conv) against theirs: f32 outputs within 1e-5 of the twin
 relative to its largest value (sums in another order), bf16 outputs within
 8e-3 (one bf16 ulp where an f32 sum straddles a rounding boundary), and
 FastFlowNet's cost volume (K8 correlation) at its five pyramid levels
-within 1e-5 (the same reason). The probe harness's kernels: K2w (K2's
+within 1e-5 (the same reason), its tap subset identical to the full
+volume's planes and written into a wider buffer without touching the
+channels around it. The probe harness's kernels: K2w (K2's
 kernel through its own entry) identical; K11 conv3d_quad within the conv
 bounds (its twin sums in f64); K12 conv3d_wino4 within 5e-5 with an f32
 output (WINO_TOL) and 8e-3 with a bf16 one, 'nodot' identical, and its
-fused bf16 route's scratch without Z; K7 and K13-K16 identical.
+fused bf16 route's scratch without Z; K7 and K13-K16 identical (K16 also
+at ragged row counts, lengths and alignments).
 
 This file imports no jax, so it also runs where jax is not installed:
 
@@ -26,6 +29,7 @@ import torch
 import os
 import re
 
+from v2ce_toolbox_tpu_torch.models.fastflownet import CORR_INDEX
 from v2ce_toolbox_tpu_torch.ops import (_cuda, barrier, compact, conv3d, conv3d_quad,
                                         conv3d_wino4, correlation, decoder, gen, roofline)
 
@@ -345,6 +349,44 @@ def test_correlation_equals_twin_on_card(c, h, w, md):
     assert torch.isfinite(got).all() and err <= 1e-5, err
 
 
+# K8's tap subset: FastFlowNet's 53 taps at its five levels, and a subset
+# out of order at W = 6 (no TMA: its rows are not 16-byte strided) and on a
+# ragged 37x45 map at md 2
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("c,h,w,md", [(32, 80, 96, 4), (64, 40, 48, 4), (64, 20, 24, 4),
+                                      (64, 10, 12, 4), (64, 5, 6, 4), (16, 37, 45, 2)])
+def test_correlation_taps_equal_full_planes_on_card(c, h, w, md):
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(c * h + w + 1)
+    f1 = torch.randn((16, c, h, w), generator=g, device=dev)
+    f2 = torch.randn((16, c, h, w), generator=g, device=dev)
+    d2 = (2 * md + 1) ** 2
+    taps = CORR_INDEX.tolist() if md == 4 else [d2 - 1, 0, d2 // 2, 3, 7, 11]
+    full = correlation.correlation(f1, f2, md)
+    got = correlation.correlation(f1, f2, md, taps=taps)
+    assert got.shape == (16, len(taps), h, w)
+    assert torch.equal(got, full[:, taps])
+    want = correlation._correlation_torch(f1, f2, md)[:, taps]
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("h,w", [(40, 48), (5, 6), (37, 45)])
+def test_correlation_out_view_leaves_neighbours_on_card(h, w):
+    """Taps written into channels 3.. of a wider buffer (batch stride
+    larger than T*H*W) leave the channels around them as they were."""
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(h * w)
+    f1 = torch.randn((4, 32, h, w), generator=g, device=dev)
+    f2 = torch.randn((4, 32, h, w), generator=g, device=dev)
+    t = len(CORR_INDEX)
+    buf = torch.full((4, t + 8, h, w), -7.0, device=dev)
+    got = correlation.correlation(f1, f2, 4, taps=CORR_INDEX, out=buf[:, 3:3 + t])
+    assert got.data_ptr() == buf[:, 3].data_ptr()
+    assert torch.equal(buf[:, 3:3 + t], correlation.correlation(f1, f2, 4)[:, CORR_INDEX])
+    assert bool((buf[:, :3] == -7).all()) and bool((buf[:, 3 + t:] == -7).all())
+
+
 def test_correlation_never_takes_the_twin_off_cpu():
     f = torch.empty((2, 32, 8, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -476,6 +518,47 @@ def test_roofline_probes_equal_twins_on_card(shape, k):
     assert torch.equal(roofline.op_chain_ilp(x, k), roofline._op_chain_ilp_torch(x, k))
     assert torch.equal(roofline.stream_copy(x), x)
     assert torch.equal(roofline.stream_copy_row(x), x)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape,offset", [((145, 11, 128, 128), 0), ((133, 3, 5, 128), 0),
+                                          ((7, 11, 40, 128), 1), ((3, 1, 1, 128), 3)])
+def test_stream_copy_row_equals_clone_on_card(shape, offset):
+    """K16 at row counts that are not a multiple of the card's 132 SMs, rows
+    that are not a multiple of the ring's 16 KB stage, and sources 4 or 12
+    bytes past a 16-byte boundary (a contiguous view into a larger
+    buffer)."""
+    dev = _cuda_or_skip()
+    n = int(np.prod(shape))
+    base = torch.from_numpy(np.random.RandomState(n).randint(0, 1 << 30, n + 4)
+                            .astype(np.int32)).to(dev)
+    x = base[offset:offset + n].view(shape)
+    assert (x.data_ptr() % 16 == 4 * offset)
+    got = roofline.stream_copy_row(x)
+    assert got.data_ptr() != x.data_ptr() and torch.equal(got, x.clone())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rows,row_bytes,src_off,dst_off", [
+    (133, 16384 * 3 + 1000, 0, 0), (5, 1001, 3, 3), (4, 40000 + 13, 7, 7), (3, 5000, 1, 2),
+    (2, 9, 5, 5)])
+def test_stream_copy_row_entry_any_length_on_card(rows, row_bytes, src_off, dst_off):
+    """The C entry of K16 on byte rows whose length is not a multiple of 16
+    and whose starts are not 16-byte aligned: the head and tail bytes by
+    the warp, the rest by the bulk copies (all by the warp where the two
+    pointers differ in their 16-byte phase)."""
+    dev = _cuda_or_skip()
+    n = rows * row_bytes
+    src = torch.from_numpy(np.random.RandomState(row_bytes).randint(0, 256, n + 16)
+                           .astype(np.uint8)).to(dev)
+    dst = torch.zeros(n + 16, dtype=torch.uint8, device=dev)
+    err = _cuda.lib().v2ce_stream_copy_row(src.data_ptr() + src_off, dst.data_ptr() + dst_off,
+                                           rows, row_bytes, _cuda.stream_of(src))
+    assert err == 0
+    torch.cuda.synchronize()
+    assert torch.equal(dst[dst_off:dst_off + n], src[src_off:src_off + n])
+    assert int(dst[:dst_off].count_nonzero()) == 0
+    assert int(dst[dst_off + n:].count_nonzero()) == 0
 
 
 @pytest.mark.requires_cuda

@@ -1,7 +1,9 @@
 // The Hopper building blocks shared by the wgmma kernels (csrc/conv_igemm.cu:
-// K9-K11 and K12's f32 product; csrc/wino4.cu: K12's fused bf16 kernel):
-// mbarriers, TMA loads, wgmma's shared-memory descriptor and its bf16
-// products, the live-step pre-pass, and the host-side tensor-map encoder.
+// K9-K11 and K12's f32 product; csrc/wino4.cu: K12's fused bf16 kernel),
+// the cost volume (csrc/correlation.cu: K8) and the row copy
+// (csrc/stream_copy.cu: K16): mbarriers, TMA tensor loads and bulk copies,
+// wgmma's shared-memory descriptor and its bf16 products, the live-step
+// pre-pass, and the host-side tensor-map encoders.
 // Everything is in an anonymous namespace and inline, so each translation
 // unit compiles its own copy and needs no relocatable device code.
 #pragma once
@@ -69,6 +71,70 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Bulk (non-tensor) copies: `bytes` a multiple of 16, both addresses
+// 16-byte aligned. The load completes on an mbarrier's transaction count;
+// the stores are committed in bulk groups, and wait_group.read<N> returns
+// once all but the newest N groups have read their shared memory.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(dst)),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a 4-byte asynchronous copy into shared memory (Ampere's cp.async), zero
+// filled where `valid` is false (src is then not read)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// order this thread's shared-memory accesses before its later async-proxy
+// (TMA, bulk copy) ones
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
@@ -225,6 +291,20 @@ inline bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base),
             dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
             bk == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// an f32 tensor map of `rank` dims (innermost first), no swizzle, zero
+// fill out of bounds: boxes land in shared memory as dense rows of box[0]
+// floats (box[0] * 4 a multiple of 16 bytes)
+inline bool encode_f32(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, (cuuint32_t)rank, const_cast<void*>(base),
+            dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

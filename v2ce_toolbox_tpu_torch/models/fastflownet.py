@@ -13,7 +13,10 @@ Structure: a shared 3-level conv pyramid (16/32/64 channels, each /2)
 extended by average pools to 1/64; at each of 5 levels, the 53-tap dilated
 selection of the 81-tap cost volume between f1 and the flow-warped f2,
 concatenated with reduced features and the upsampled coarser flow, decoded
-by grouped convs with channel shuffle.
+by grouped convs with channel shuffle. K8 writes the 53 taps straight into
+channels 0-52 of the decoder's input, allocated once a level, and the
+reduced features and the flow are copied into the rest: the reference's
+gather and concatenation, without the cost volume's two extra copies.
 """
 
 from __future__ import annotations
@@ -40,6 +43,10 @@ CORR_INDEX = np.array([
     54, 56, 57, 58, 59, 60, 62,
     64, 66, 68, 70,
     72, 74, 76, 78, 80])
+
+CORR_TAPS = tuple(CORR_INDEX.tolist())
+N_TAPS = len(CORR_INDEX)
+DECODER_IN = N_TAPS + 32 + 2         # taps, reduced features, upsampled flow
 
 LEVELS = (2, 3, 4, 5, 6)
 # the coarser flow is upsampled and scaled to warp f2 at each finer level
@@ -120,14 +127,13 @@ class FastFlowNet(nn.Module):
         self.pconv3_1 = _convrelu(32, 64, 2)
         self.pconv3_2 = _convrelu(64, 64)
         self.pconv3_3 = _convrelu(64, 64)
-        self.register_buffer("corr_index", torch.from_numpy(CORR_INDEX), persistent=False)
         self.rconv2 = _convrelu(32, 32)
         for lvl in (3, 4, 5, 6):
             setattr(self, f"rconv{lvl}", _convrelu(64, 32))
         for lvl in (3, 4, 5, 6):
             setattr(self, f"up{lvl}", nn.ConvTranspose2d(2, 2, 4, 2, 1))
         for lvl in LEVELS:
-            setattr(self, f"decoder{lvl}", FlowDecoder(53 + 32 + 2, groups))
+            setattr(self, f"decoder{lvl}", FlowDecoder(DECODER_IN, groups))
 
     def pyramid(self, img: torch.Tensor):
         f1 = self.pconv1_2(self.pconv1_1(img))
@@ -138,8 +144,26 @@ class FastFlowNet(nn.Module):
         f6 = F.avg_pool2d(f5, 2)
         return {2: f2, 3: f3, 4: f4, 5: f5, 6: f6}
 
-    def cost_volume(self, f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
-        return correlation(f1, f2, max_displacement=4)[:, self.corr_index]
+    def cost_volume(self, f1: torch.Tensor, f2: torch.Tensor,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The CORR_INDEX taps of the 81-tap cost volume, (N, 53, H, W);
+        written into `out` where given (a view whose batch stride may
+        exceed 53*H*W)."""
+        return correlation(f1, f2, max_displacement=4, taps=CORR_TAPS, out=out)
+
+    def decoder_input(self, lvl: int, f1: torch.Tensor, f2: torch.Tensor,
+                      flow_up: Optional[torch.Tensor]) -> torch.Tensor:
+        """(N, 87, H, W): the cost volume, rconv<lvl>(f1) and flow_up
+        (zeros where None), in that channel order."""
+        n, _, h, w = f1.shape
+        x = f1.new_empty((n, DECODER_IN, h, w))
+        self.cost_volume(f1, f2, out=x[:, :N_TAPS])
+        x[:, N_TAPS:N_TAPS + 32] = getattr(self, f"rconv{lvl}")(f1)
+        if flow_up is None:
+            x[:, N_TAPS + 32:].zero_()
+        else:
+            x[:, N_TAPS + 32:] = flow_up
+        return x
 
     def forward(self, img_pair: torch.Tensor, train: bool = False):
         """img_pair: (N, 6, H, W) two stacked RGB frames, H, W % 64 == 0.
@@ -147,16 +171,12 @@ class FastFlowNet(nn.Module):
         the flows of all 5 levels, finest first."""
         feats1 = self.pyramid(img_pair[:, :3])
         feats2 = self.pyramid(img_pair[:, 3:6])
-        f16 = feats1[6]
-        flow7_up = f16.new_zeros((f16.shape[0], 2, *f16.shape[2:]))
-        cat6 = torch.cat([self.cost_volume(f16, feats2[6]), self.rconv6(f16), flow7_up], 1)
-        flows = {6: self.decoder6(cat6)}
+        flows = {6: self.decoder6(self.decoder_input(6, feats1[6], feats2[6], None))}
         for lvl in (5, 4, 3, 2):
             flow_up = getattr(self, f"up{lvl + 1}")(flows[lvl + 1])
             f2w = bilinear_warp(feats2[lvl], flow_up * WARP_SCALE[lvl])
-            cat = torch.cat([self.cost_volume(feats1[lvl], f2w),
-                             getattr(self, f"rconv{lvl}")(feats1[lvl]), flow_up], 1)
-            flows[lvl] = getattr(self, f"decoder{lvl}")(cat) + flow_up
+            x = self.decoder_input(lvl, feats1[lvl], f2w, flow_up)
+            flows[lvl] = getattr(self, f"decoder{lvl}")(x) + flow_up
         if train:
             return tuple(flows[i] for i in LEVELS)
         return flows[2]

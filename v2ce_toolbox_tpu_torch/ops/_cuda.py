@@ -66,7 +66,7 @@ _SIGNATURES = {
     "v2ce_append_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "v2ce_conv3d": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "v2ce_decoder_conv": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "v2ce_correlation": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "v2ce_correlation": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _L, _P, _P],
     "v2ce_conv3d_quad": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P],
     "v2ce_conv3d_wino4": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

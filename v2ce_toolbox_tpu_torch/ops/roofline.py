@@ -10,7 +10,9 @@ keys, sc = 128).
   * `op_chain_ilp(x, k)` (K14, `:2554`): the same on 4 chains x + i,
     k // 16 rounds each; returns the XOR of the four;
   * `stream_copy(x)` (K15, `:2597`) and `stream_copy_row(x)` (K16,
-    `:2626`): x copied in one block per (row, chunk), or per row.
+    `:2626`): x copied in one block per (row, chunk), or per row (K16
+    through a ring of bulk copies, its output allocated at the source's
+    16-byte phase so that the bulk copies apply to both).
 
 The closures of the JAX probe become functions here. On a CPU tensor each
 runs its plain twin (`torch.roll`, `clone()`); on a CUDA tensor it launches
@@ -99,9 +101,21 @@ def _stream_copy_torch(x: torch.Tensor) -> torch.Tensor:
     return x.clone()
 
 
+def _same_phase_empty(x: torch.Tensor) -> torch.Tensor:
+    """An empty tensor like the contiguous x whose address lies at x's
+    16-byte phase (a view into a slightly longer buffer where x is not
+    16-byte aligned)."""
+    if x.data_ptr() % 16 == 0:
+        return torch.empty_like(x)
+    per = 16 // x.element_size()
+    buf = torch.empty(x.numel() + per, dtype=x.dtype, device=x.device)
+    off = (x.data_ptr() - buf.data_ptr()) % 16 // x.element_size()
+    return buf[off:off + x.numel()].view(x.shape)
+
+
 def _launch_copy(name: str, x: torch.Tensor, *dims: int) -> torch.Tensor:
     xc = x.contiguous()
-    out = torch.empty_like(xc)
+    out = _same_phase_empty(xc) if name == "stream_copy_row" else torch.empty_like(xc)
     with torch.cuda.device(x.device):
         err = getattr(_cuda.lib(), f"v2ce_{name}")(xc.data_ptr(), out.data_ptr(), *dims,
                                                    _cuda.stream_of(x))

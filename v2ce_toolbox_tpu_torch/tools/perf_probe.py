@@ -409,9 +409,13 @@ def probe_stage2_roofline(dev, r=144, chunk=16384, seg=2 * 260 * 346, ks=(64, 25
     row_rate = 2 * total_el * 4 / t_row
     block_fixed_us = max(t_copy - t_row, 0.0) / (r * n_chunks - r) * 1e6
     res.update(copy_t=t_copy, stream_rate=stream_rate, row_t=t_row, row_rate=row_rate)
-    print(f"stream copy ({n * 4 // 1024} KB blocks, {r} blocks): {t_row*1e3:.2f} ms -> "
-          f"{row_rate/1e9:.0f} GB/s; implied fixed cost ~{block_fixed_us:.2f} us per block",
-          flush=True)
+    # the two copies are two designs (K15 a register copy in small blocks,
+    # K16 a ring of bulk copies a row), so the difference is not one
+    # design's cost per grid step, as on the TPU
+    print(f"stream copy ({n * 4 // 1024} KB blocks, {r} blocks, bulk-copy ring): "
+          f"{t_row*1e3:.2f} ms -> {row_rate/1e9:.0f} GB/s; implied fixed cost "
+          f"~{block_fixed_us:.2f} us per block (two designs compared, not one design at two "
+          f"block sizes)", flush=True)
     rate = max(stream_rate, row_rate)
 
     # 3. chain compaction at the sampler's shape, with its payload: bound by
