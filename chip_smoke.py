@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`v2ce_toolbox_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare-conv TREE [TREE ...]
+    python3 chip_smoke.py --compare-conv [--sets conv,flow,stage2] TREE [TREE ...]
 
 The second form times the four kernels of the shared conv core (K9 and
 K10 per research-model window, K11 over the probe's `quad` and `quad_s2`
@@ -15,7 +15,10 @@ process with its own kernel build: two versions compared on one card
 (e.g. parent, change, change, parent), each label's runs and mean against
 the first TREE's. K12 is also timed on the device alone (its kernels by
 torch.profiler), so a change in the wrapper's host work can be told from
-one in the kernels.
+one in the kernels; and the stage-2 set (`stage2_times`): K1 'slope' and
+'none' on a 24-frame 260x346 chunk and K2's three main-path calls and its
+grid-width call on it, by events and on the device. `--sets` picks some of
+the three sets (conv, flow, stage2; all by default).
 
 Phases, any failure exits non-zero before the result lines:
   1. the card's name and power limit (nvidia-smi);
@@ -30,8 +33,12 @@ Phases, any failure exits non-zero before the result lines:
      included), K3 merge_sorted_rows (the fused route's calls and the
      per-frame merge of the EventStream route), and K5 append_rows (the
      EventStream flatten). Outputs must be identical. At the dense
-     setting: median CUDA-event times of kernel and twin, and each call's
-     bound (the bytes it needs, see bound_ms, at the HBM rate);
+     setting: median CUDA-event times of kernel and twin, each call's
+     device ms from CUDA-graph replays, and each call's bound (the bytes it
+     needs, see bound_ms, at the HBM rate); torch.profiler's listing of the
+     card's activity in each K1 and K2 call (K2: one kernel after the
+     memset of its scratch; K1: at most two kernels after it), and the
+     bytes K1's design moves against the voxel grid;
   4. the CLI (`cli.main`), full-width model on seeded random weights, each
      path counted (launch counters reset just before it and read just
      after; every kernel of the path must have moved): center mode on a
@@ -138,6 +145,7 @@ OUT = os.path.join(ROOT, "smoke_out")      # the clips and the CLI outputs
 N_TIMED = 15
 N_DEVICE = 5                               # profiled calls of a K12 device time
 N_CLI = 3
+LISTING_TRIES = 3                          # profiler listings of one K1/K2 call at most
 STAGE1_REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM device memory
 # H100 SXM dense peaks: bf16 tensor cores, and f32 on the CUDA cores (the
@@ -448,17 +456,93 @@ def kernels_phase(torch, np, dev):
             continue
         dense = (v, events, draw, offsets)
         for label, kernel, plain, cl in cases:
-            tk = tp = tb = 0.0
+            tk = tp = tb = td = 0.0
             for a, k in cl:
                 x, y = time_pair(lambda: kernel(*a, **k), lambda: plain(*a, **k), torch)
+                d = graph_ms(lambda: kernel(*a, **k), torch)
                 b = bound_ms(label, a, k, kernel(*a, **k))
                 log(f"[time] {label} {tuple(a[0].shape)} {k}: kernel {x:.4f} ms, "
-                    f"plain {y:.4f} ms, bound {b:.4f} ms")
-                tk, tp, tb = tk + x, tp + y, tb + b
-            results[label] = dict(ms=tk, plain_ms=tp, bound_ms=tb)
-            log(f"[time] {label} per 24-frame chunk: kernel {tk:.4f} ms, plain {tp:.4f} ms, "
-                f"bound {tb:.4f} ms")
+                    f"device {d:.4f} ms, plain {y:.4f} ms, bound {b:.4f} ms")
+                tk, tp, tb, td = tk + x, tp + y, tb + b, td + d
+            results[label] = dict(ms=tk, device_ms=td, plain_ms=tp, bound_ms=tb, calls=len(cl))
+            log(f"[time] {label} per 24-frame chunk ({len(cl)} calls): kernel {tk:.4f} ms, "
+                f"device {td:.4f} ms, plain {tp:.4f} ms, bound {tb:.4f} ms")
+        launch_listing(torch, cases, results)
+        gen_compact_bytes(v, kw1)
     return results, errs, dense
+
+
+def device_activities(fn, torch):
+    """Names of the card's activities (kernels, memsets, copies) in one fn
+    call, in start order, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    return [ev.name for ev in sorted(evs, key=lambda ev: ev.time_range.start)]
+
+
+def launch_listing(torch, cases, results):
+    """The card's activities in each K1 and K2 call of phase 3: a K2 call
+    must be one kernel after one memset (of its look-back scratch), a K1
+    call at most two kernels after one.
+
+    torch.profiler can drop a record, most often the first activity of a
+    process's first session (the call's memset), so the profiler is warmed
+    up on one call first, and a listing that lacks its memset or its kernel
+    is taken again, at most LISTING_TRIES times. A listing with more kernels
+    or memsets than allowed, or with any copy, fails at once."""
+    limits = {"gen_compact": 2, "compact_rows": 1}
+    _, kernel, _, cl = cases[0]
+    device_activities(lambda: kernel(*cl[0][0], **cl[0][1]), torch)
+    for label, kernel, _, cl in cases:
+        name = label.split("[")[0]
+        if name not in limits:
+            continue
+        per_call = []
+        for a, k in cl:
+            for attempt in range(1, LISTING_TRIES + 1):
+                acts = device_activities(lambda: kernel(*a, **k), torch)
+                kernels = [x for x in acts if not x.startswith(("Memset", "Memcpy"))]
+                memsets = [x for x in acts if x.startswith("Memset")]
+                log(f"[launch listing] {label} {tuple(a[0].shape)}: {len(kernels)} kernel(s) "
+                    f"{[x.replace('(anonymous namespace)::', '').split('(')[0] for x in kernels]}"
+                    f", {len(memsets)} memset(s), "
+                    f"{len(acts) - len(kernels) - len(memsets)} copies"
+                    + (f" (listing {attempt})" if attempt > 1 else ""))
+                if (len(kernels) > limits[name] or len(memsets) > 1
+                        or len(acts) != len(kernels) + len(memsets)):
+                    raise AssertionError(f"{label} made {acts}: more than {limits[name]} "
+                                         "kernel(s) after one memset")
+                if kernels and memsets:
+                    break
+            else:
+                raise AssertionError(f"torch.profiler recorded {acts} in {label} "
+                                     f"{LISTING_TRIES} times: no kernel after one memset")
+            per_call.append(len(kernels))
+        results[label]["kernel_launches_per_call"] = per_call
+
+
+def gen_compact_bytes(v, kw):
+    """The bytes K1's design moves at the main-path chunk, from its shapes:
+    the voxel grid read once, the rows, per-row and per-frame numbers
+    written once, and the scratch (zeroed by the memset, then 11 status
+    words a tile written and read); printed against the grid, beside the
+    launch listing."""
+    from v2ce_toolbox_tpu_torch.ops import gen
+
+    bb, p, c, h, w = v.shape
+    capp = -(-kw["cap_bin"] // 16384) * 16384
+    words = gen.plan(bb, p * h * w, capp)[2]
+    moved = {"voxels read": v.numel() * 4, "keys and kx written": 2 * bb * (c - 1) * capp * 4,
+             "kept, total, emit, drop": (2 * bb * (c - 1) + 2 * bb) * 4,
+             "scratch (memset + status)": 2 * words * 8}
+    log("[K1 bytes] " + ", ".join(f"{k} {b / 1e6:.2f} MB" for k, b in moved.items())
+        + f": {sum(moved.values()) / 1e6:.2f} MB in all against the "
+        f"{v.numel() * 4 / 1e6:.2f} MB voxel grid (read once)")
 
 
 def graph_ms(fn, torch, reps=10):
@@ -1602,7 +1686,8 @@ def main():
                                              "live_steps", "live_steps_s122",
                                              "f32_rel_err_vs_f64", "calls",
                                              "library_device_ms", "library_bytes_per_s",
-                                             "taps_device_ms", "levels") if k in r}})
+                                             "taps_device_ms", "levels",
+                                             "kernel_launches_per_call") if k in r}})
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "stage2_roofline": roofline_rates,
                       "card": smi}))
@@ -1610,7 +1695,10 @@ def main():
                                              "count": torch.cuda.device_count()}}))
 
 
-def conv_times(torch, np, dev, n=N_TIMED):
+COMPARE_SETS = ("conv", "flow", "stage2")
+
+
+def conv_times(torch, np, dev, n=N_TIMED, sets=COMPARE_SETS):
     """CUDA-event ms (median of n) of the four conv kernels' wrappers of
     whichever `v2ce_toolbox_tpu_torch` is imported, in bf16 and f32 (f32
     output for K9, K11 and K12, the compute dtype for K10, as the model and
@@ -1620,9 +1708,11 @@ def conv_times(torch, np, dev, n=N_TIMED):
     strided wrapper's fold alone over those 4), K12 over the 3
     `wino_pallas` shapes, and those K12 calls on the device alone
     (`conv3d_wino4[<dtype>] device`: the kernels of a call by
-    torch.profiler, median of N_DEVICE); then `flow_times`. Only the
-    wrappers' public signatures are used, so any version of the package can
-    be timed. Returns {label: ms}."""
+    torch.profiler, median of N_DEVICE); before them `stage2_times` and
+    `flow_times`. `sets` picks among the stage-2 ("stage2"), flow ("flow")
+    and conv ("conv") timings. Only the wrappers' public signatures are
+    used, so any version of the package can be timed. Returns {label:
+    ms}."""
     from v2ce_toolbox_tpu_torch.config import ModelConfig
     from v2ce_toolbox_tpu_torch.models import V2ce3d, layers
     from v2ce_toolbox_tpu_torch.ops import conv3d, conv3d_quad, conv3d_wino4, decoder
@@ -1630,6 +1720,12 @@ def conv_times(torch, np, dev, n=N_TIMED):
     from v2ce_toolbox_tpu_torch.utils.weights import init_weights
 
     times = {}
+    if "stage2" in sets:
+        times.update(stage2_times(torch, np, dev, n))
+    if "flow" in sets:
+        times.update(flow_times(torch, np, dev, n))
+    if "conv" not in sets:
+        return times
 
     def add(label, fn):
         with torch.no_grad():
@@ -1680,7 +1776,57 @@ def conv_times(torch, np, dev, n=N_TIMED):
                 times[label] = times.get(label, 0.0) + statistics.median(d[2] for d in dev_ms)
             del xw, kw
         torch.cuda.empty_cache()
-    times.update(flow_times(torch, np, dev, n))
+    return times
+
+
+def stage2_times(torch, np, dev, n=N_TIMED):
+    """For `--compare-conv`, through the wrappers and the stage-2 functions
+    every version of the package has: on phase 3's dense (24, 2, 10, 260,
+    346) voxels, K1 'slope' and 'none' (`gen_compact[<strategy>]`) and
+    K2's three main-path calls of the fused route (`compact_rows[main i:
+    ...]`, summed in `compact_rows[main path]`) and its grid-width call,
+    each by CUDA events (median of n) and on the device by graph replays
+    (`... device`). Returns {label: ms}."""
+    from v2ce_toolbox_tpu_torch.config import SamplerConfig
+    from v2ce_toolbox_tpu_torch.ops import compact, gen, ldati
+    from v2ce_toolbox_tpu_torch.pipeline import driver
+
+    scfg = SamplerConfig()
+    g = torch.Generator(device=dev).manual_seed(1234)
+    v = ((torch.rand((F, 2, 10, H, W), generator=g, device=dev) < 0.3)
+         * torch.rand((F, 2, 10, H, W), generator=g, device=dev) * 5.0).contiguous()
+    offsets = torch.from_numpy((np.arange(F) / FPS * 1e6).astype(np.int32)).to(dev)
+    draw = ldati.make_draw(0, 0, dev)
+    main, grid = [], []
+    with record_calls([ldati, driver], "compact_rows", main):
+        driver._fetch_chunk_events_fused(v, draw, offsets, F, scfg, FPS, width=W)
+    with record_calls([ldati], "compact_rows", grid):
+        ldati.sample_rows(v, draw, dataclasses.replace(scfg, use_gen_compact=False))
+    grid = [c for c in grid if c[0][0].shape[1] == 2 * H * W]
+    if len(main) != 3 or len(grid) != 1:
+        raise AssertionError(f"expected 3 main-path and 1 grid K2 calls, got {len(main)}, "
+                             f"{len(grid)}")
+    kw1 = dict(fps=FPS, mepv=scfg.max_events_per_voxel, vox_bits=ldati.vox_bits_of(2, H, W),
+               cap_bin=scfg.cap_bin)
+    times = {}
+
+    def add(label, fn):
+        times[label] = time_one(fn, torch, n)
+        times[f"{label} device"] = graph_ms(fn, torch)
+
+    for strategy in ("slope", "none"):
+        add(f"gen_compact[{strategy}]", lambda: gen.gen_compact(v, strategy=strategy, **kw1))
+    labels = []
+    for i, (a, k) in enumerate(main + grid):
+        r, width = a[0].shape
+        label = (f"compact_rows[{'main ' + str(i) if i < 3 else 'grid'}: {r}x{width}->"
+                 f"{k['cap']}{'+pay' if len(a) > 1 and a[1] else ''}]")
+        add(label, lambda: compact.compact_rows(*a, **k))
+        labels.append(label)
+    for suffix in ("", " device"):
+        times[f"compact_rows[main path]{suffix}"] = sum(times[x + suffix] for x in labels[:3])
+    del v, main, grid
+    torch.cuda.empty_cache()
     return times
 
 
@@ -1765,12 +1911,12 @@ spec.loader.exec_module(smoke)
 import v2ce_toolbox_tpu_torch
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
-times = smoke.conv_times(torch, numpy, torch.device("cuda"))
+times = smoke.conv_times(torch, numpy, torch.device("cuda"), sets=sys.argv[2].split(","))
 print("RESULT " + json.dumps({"package": v2ce_toolbox_tpu_torch.__file__, "ms": times}))
 """
 
 
-def compare_conv(trees):
+def compare_conv(trees, sets=COMPARE_SETS):
     """conv_times of each TREE's package and kernels, in turns, one process
     each (each builds the TREE's csrc/); then each kernel's change against
     the first tree (the mean of the runs of each tree)."""
@@ -1783,8 +1929,8 @@ def compare_conv(trees):
     log(smi)
     runs = []
     for tree in trees:
-        proc = subprocess.run([sys.executable, "-c", COMPARE_CONV, os.path.abspath(__file__)],
-                              cwd=tree, capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, "-c", COMPARE_CONV, os.path.abspath(__file__),
+                               ",".join(sets)], cwd=tree, capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"the conv timings of {tree} failed:\n{proc.stderr[-4000:]}")
         res = json.loads(proc.stdout.split("RESULT ", 1)[1])
@@ -1804,7 +1950,7 @@ def compare_conv(trees):
 
     for label in sorted(runs[0][1]):
         report(label, lambda ms: ms[label])
-    for d in ("bfloat16", "float32"):
+    for d in ("bfloat16", "float32") if "conv" in sets else ():
         # the strided K11 layers without their wrapper's fold: the core's share
         report(f"conv3d_quad_s122[{d}] less fold_s122",
                lambda ms: ms[f"conv3d_quad_s122[{d}]"] - ms[f"fold_s122[{d}]"])
@@ -1813,6 +1959,9 @@ def compare_conv(trees):
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--compare-conv"]:
-        compare_conv(sys.argv[2:])
+        if sys.argv[2:3] == ["--sets"]:
+            compare_conv(sys.argv[4:], tuple(sys.argv[3].split(",")))
+        else:
+            compare_conv(sys.argv[2:])
     else:
         main()

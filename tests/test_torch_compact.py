@@ -35,24 +35,56 @@ def _assert_same(jax_out, port_out):
     np.testing.assert_array_equal(np.asarray(jtot), ptot.numpy())
 
 
+def _offset_view(a):
+    """a as a contiguous view whose data starts one int32 into its buffer
+    (not on 16 bytes), as `side_in[None]`-style views can."""
+    flat = torch.from_numpy(np.concatenate([np.zeros(1, a.dtype), a.ravel()]))
+    return flat[1:].view(a.shape)
+
+
 @pytest.mark.parametrize("case", [
-    # (rows, n, density, cap, chunk, payload): cap binds (1000 -> 1024 of
-    # ~1229 valids) with a payload; cap free and n not a chunk multiple
-    (8, 4096, 0.3, 1000, 512, True),
-    (6, 1000, 0.5, 4096, 256, False),
+    # (rows, n, density, cap, chunk, payload, view): cap binds (1000 -> 1024
+    # of ~1229 valids) with a payload; cap free and n not a chunk multiple;
+    # then the shapes the CUDA kernel's paths split on (4,096-key tiles):
+    # n % 4 != 0 (key-by-key loads), an offset view, one row of many tiles
+    # (a long look-back), all-valid rows whose cap falls on a tile boundary,
+    # all-INVALID rows
+    (8, 4096, 0.3, 1000, 512, True, False),
+    (6, 1000, 0.5, 4096, 256, False, False),
+    (2, 16387, 0.5, 4096, 4096, True, False),
+    (2, 16384, 0.5, 4096, 4096, True, True),
+    (1, 8192 * 9 + 5, 0.3, 16384, 16384, True, False),
+    (2, 24576, 1.0, 8192, 8192, True, False),
+    (3, 9000, 0.0, 4096, 512, True, False),
 ])
 def test_compact_rows_matches_jax(case):
-    r, n, density, cap, chunk, with_pay = case
+    r, n, density, cap, chunk, with_pay, view = case
     keys, pay = _rows(1, r, n, density)
     pays = [pay] if with_pay else []
     ref = jax_compact.compact_rows(jnp.asarray(keys), [jnp.asarray(p) for p in pays],
                                    cap=cap, chunk=chunk, algo="place")
-    got = compact.compact_rows(torch.from_numpy(keys),
-                               [torch.from_numpy(p) for p in pays], cap=cap, chunk=chunk,
-                               algo="place")
+    as_torch = _offset_view if view else torch.from_numpy
+    got = compact.compact_rows(as_torch(keys), [as_torch(p) for p in pays], cap=cap,
+                               chunk=chunk, algo="place")
     _assert_same(ref, got)
-    if cap < n:
+    if cap < n and density > 0:
         assert (got[3] > got[2]).any()      # the cap really binds
+
+
+@pytest.mark.parametrize("rows,n,capp,expect", [
+    # the three main-path calls of a 24-frame chunk, the grid-width call,
+    # the EventStream side list, an empty row and a zero cap
+    (216, 16384, 4096, (4, 1, 865)),
+    (216, 31616, 16384, (8, 1, 1729)),
+    (216, 179920, 16384, (44, 1, 9505)),
+    (1, 24 * 147456, 122880, (864, 8, 865)),
+    (3, 0, 128, (0, 1, 1)),
+    (2, 4096, 0, (1, 1, 3)),
+    (2, 4097, 16385, (2, 2, 5)),
+])
+def test_compact_plan(rows, n, capp, expect):
+    # K2's tiling: compute tiles a row, fill tiles a row, scratch words
+    assert compact.plan(rows, n, capp) == expect
 
 
 @pytest.mark.parametrize("density", [0.0, 0.05, 0.5, 0.95, 1.0])

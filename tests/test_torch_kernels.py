@@ -1,7 +1,9 @@
 """The port's CUDA kernels (K1 gen_compact, K2 compact_rows, K3
 merge_sorted_rows, K4 gen_pack, K5 append_rows) against their plain-torch
 twins, at the shapes of the stage-2 paths (24-frame chunks of 260x346
-voxels), the research stage-1 convs (K9 conv3d_3x3x3, K10
+voxels) and at the edges of K1's and K2's look-back core (ragged lengths,
+views off 16 bytes, long look-backs, caps on tile boundaries, empty and
+full rows, replays in a CUDA graph), the research stage-1 convs (K9 conv3d_3x3x3, K10
 fused_up_concat_conv) against theirs: f32 outputs within 1e-5 of the twin
 relative to its largest value (sums in another order), bf16 outputs within
 8e-3 (one bf16 ulp where an f32 sum straddles a rounding boundary), and
@@ -28,6 +30,8 @@ import torch
 
 import os
 import re
+import subprocess
+import sys
 
 from v2ce_toolbox_tpu_torch.models.fastflownet import CORR_INDEX
 from v2ce_toolbox_tpu_torch.ops import (_cuda, barrier, compact, conv3d, conv3d_quad,
@@ -152,6 +156,161 @@ def test_compact_rows_few_wide_rows_equal_twin_on_card(r, n, cap, chunk, density
                   compact.compact_rows_torch(k, [p], cap=cap, chunk=chunk))
     _assert_equal(compact.compact_rows(k, (), cap=cap, chunk=chunk, algo="place"),
                   compact.compact_rows_torch(k, (), cap=cap, chunk=chunk))
+
+
+def _on_card(a, dev, view=False):
+    """a on the card; with view, as a contiguous view that starts one
+    element past a 16-byte boundary (as `side_in[None]`-style views can)."""
+    t = torch.from_numpy(a).to(dev)
+    if not view:
+        return t
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    flat[1:] = t.reshape(-1)
+    v = flat[1:].view(t.shape)
+    assert v.data_ptr() % 16 != 0
+    return v
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("r,n,cap,chunk,density,view", [
+    (3, 16387, 8192, 8192, 0.5, False),              # n % 4 != 0: key-by-key loads
+    (2, 16384, 4096, 4096, 0.5, True),               # keys off 16 bytes
+    (1, 8192 * 300 + 8, 1 << 20, 8192, 0.3, False),  # 601 tiles: a long look-back
+    (4, 32768, 8192, 8192, 1.0, False),              # all valid, cap on a tile boundary
+    (3, 20000, 4096, 4096, 0.0, False),              # all INVALID
+    (2, 24576, 30000, 128, 1.0, False),              # all valid, the tail past n
+])
+def test_compact_rows_core_paths_equal_twin_on_card(r, n, cap, chunk, density, view):
+    # the look-back core's paths (4,096-key tiles, 16-byte loads where n % 4
+    # == 0 and the keys start on 16 bytes, fill tiles for the tail)
+    dev = _cuda_or_skip()
+    keys, pay = _rows(9, r, n, density)
+    k, p = _on_card(keys, dev, view), _on_card(pay, dev, view)
+    for pays in ([p], ()):
+        _assert_equal(compact.compact_rows(k, pays, cap=cap, chunk=chunk, algo="place"),
+                      compact.compact_rows_torch(k, pays, cap=cap, chunk=chunk))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("strategy", ["slope", "none"])
+@pytest.mark.parametrize("shape,cap_bin,chunk,view", [
+    ((2, 2, 10, 23, 47), 512, 128, False),     # H*W % 4 != 0, the last tile partial
+    ((3, 2, 10, 32, 48), 1024, 128, False),    # 3 whole tiles a frame
+    ((2, 2, 10, 20, 30), 128, 128, True),      # voxels off 16 bytes, caps bind
+    ((24, 2, 10, 260, 346), 4096, 4096, False),  # the main-path grid, cap = a fill chunk
+])
+def test_gen_compact_core_paths_equal_twin_on_card(shape, cap_bin, chunk, view, strategy):
+    dev = _cuda_or_skip()
+    rng = np.random.RandomState(5)
+    v = ((rng.rand(*shape) < 0.3) * rng.rand(*shape) * 5.0).astype(np.float32)
+    v = _on_card(v, dev, view)
+    kw = dict(fps=30, mepv=32, vox_bits=int(np.ceil(np.log2(2 * shape[3] * shape[4]))),
+              cap_bin=cap_bin, chunk=chunk, strategy=strategy)
+    _assert_equal(gen.gen_compact(v, **kw), gen.gen_compact_torch(v, **kw))
+
+
+STRESS_ITERS = 200        # each: K1 'slope' and K2's three main-path calls
+STRESS_TIMEOUT_S = 300    # the child's start, its inputs and twins, and the calls
+
+
+def stress_lookback(iters):
+    """Back-to-back K1 and K2 calls at the main-path shapes of a 24-frame
+    chunk, with no host sync between them: K1 'slope' over (24, 2, 10,
+    260, 346) voxels at the default sampler's cap, then K2 at (216, 16384)
+    -> 4096 with a payload, (216, 31616) -> 16384 and (216, 16384) -> 4096.
+    Every output of every call is held against its twin's on the card;
+    returns the number of outputs that differ (synced once, at the end)."""
+    from v2ce_toolbox_tpu_torch.config import SamplerConfig
+    from v2ce_toolbox_tpu_torch.ops import ldati
+
+    dev = _cuda_or_skip()
+    _cuda.lib()
+    scfg = SamplerConfig()
+    g = torch.Generator(device=dev).manual_seed(7)
+    shape = (24, 2, 10, 260, 346)
+    v = ((torch.rand(shape, generator=g, device=dev) < 0.3)
+         * torch.rand(shape, generator=g, device=dev) * 5.0).contiguous()
+    kw = dict(fps=30, mepv=scfg.max_events_per_voxel, vox_bits=ldati.vox_bits_of(2, 260, 346),
+              cap_bin=scfg.cap_bin)
+    calls = [(lambda: gen.gen_compact(v, **kw), gen.gen_compact_torch(v, **kw))]
+    for seed, (n, cap, density, with_pay) in enumerate(
+            [(16384, 4096, 0.3, True), (31616, 16384, 0.3, False), (16384, 4096, 0.05, False)]):
+        keys, pay = _rows(30 + seed, 216, n, density)
+        k = torch.from_numpy(keys).to(dev)
+        pays = [torch.from_numpy(pay).to(dev)] if with_pay else []
+        calls.append((lambda k=k, pays=pays, cap=cap: compact.compact_rows(
+            k, pays, cap=cap, chunk=4096, algo="place"),
+            compact.compact_rows_torch(k, pays, cap=cap, chunk=4096)))
+    for run, ref in calls:                        # shapes and dtypes, once
+        _assert_equal(run(), ref)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(iters):
+        for run, ref in calls:
+            for x, y in zip(_flat(run()), _flat(ref)):
+                if x is not None:
+                    bad += (x != y).any()
+    return int(bad)
+
+
+@pytest.mark.requires_cuda
+def test_compaction_back_to_back_calls_never_hang_on_card():
+    # an ordering fault of the look-back (a tile that waits for a flag no
+    # store ever leaves) hangs the card only now and then; the calls run
+    # in a child process, so a hang ends at the timeout as a failure here
+    _cuda_or_skip()
+    _cuda.lib()                                   # build before the child starts
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("from tests.test_torch_kernels import stress_lookback; "
+            f"print('differing outputs', stress_lookback({STRESS_ITERS}))")
+    try:
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                              text=True, timeout=STRESS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"{STRESS_ITERS} rounds of K1 and K2 calls did not end within "
+                    f"{STRESS_TIMEOUT_S} s: a look-back wait never ended")
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().splitlines()[-1] == "differing outputs 0", proc.stdout
+
+
+@pytest.mark.requires_cuda
+def test_compaction_graph_replays_reset_the_lookback_on_card():
+    # one K2 and one K1 call captured in a CUDA graph, replayed over new
+    # inputs: each replay's memset must clear the previous one's ticket and
+    # status words, or the offsets (and the tickets) would be stale
+    dev = _cuda_or_skip()
+    r, n = 4, 8192 * 5 + 100
+    k = torch.empty((r, n), dtype=torch.int32, device=dev)
+    p = torch.empty_like(k)
+    v = torch.empty((2, 2, 10, 64, 96), device=dev)
+    kw = dict(fps=30, mepv=32, vox_bits=14, cap_bin=2048, chunk=128)
+
+    def load(seed):
+        keys, pay = _rows(seed, r, n, 0.2 + 0.2 * (seed % 3))
+        k.copy_(torch.from_numpy(keys))
+        p.copy_(torch.from_numpy(pay))
+        rng = np.random.RandomState(seed)
+        v.copy_(torch.from_numpy(((rng.rand(*v.shape) < 0.3) * rng.rand(*v.shape)
+                                  * (2.0 + seed % 4)).astype(np.float32)))
+
+    def run():
+        return (compact.compact_rows(k, [p], cap=8192, chunk=8192, algo="place"),
+                gen.gen_compact(v, **kw))
+
+    load(20)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = run()
+    for seed in (21, 22, 23):
+        load(seed)
+        g.replay()
+        torch.cuda.synchronize()
+        _assert_equal(out[0], compact.compact_rows_torch(k, [p], cap=8192, chunk=8192))
+        _assert_equal(out[1], gen.gen_compact_torch(v, **kw))
 
 
 @pytest.mark.requires_cuda

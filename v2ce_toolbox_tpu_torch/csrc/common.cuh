@@ -1,8 +1,9 @@
 // Shared device helpers of the v2ce kernels: the INVALID marker, block-wide
-// scans built from warp ballots and shuffles, block sums of a range and the
-// count of a row's valid keys, the tail fill that writes INVALID keys / zero payloads past each
-// row's kept prefix, and the LDATI generation math that K1 (gen_compact.cu)
-// and K4 (gen_pack.cu) share, so both run the identical f32 op sequence.
+// scans built from warp shuffles, block sums of a range and the count of a
+// row's valid keys (K3 and K5, merge_rows.cu), and the LDATI generation
+// math that K1 (gen_compact.cu) and K4 (gen_pack.cu) share, so both run the
+// identical f32 op sequence. The compaction core of K1 and K2 is
+// compact_core.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,31 +14,6 @@ namespace v2ce {
 
 __device__ __forceinline__ unsigned lane_id() { return threadIdx.x & 31u; }
 __device__ __forceinline__ unsigned warp_id() { return threadIdx.x >> 5; }
-
-// Exclusive rank of `flag` among the block's flagged threads, in thread
-// order. `scratch` is __shared__ int[32]; *total receives the block's count.
-// Every thread of the block must call it (it synchronizes).
-__device__ __forceinline__ int block_rank(bool flag, int* scratch, int* total) {
-  const unsigned lane = lane_id(), warp = warp_id();
-  const unsigned nwarps = (blockDim.x + 31) >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, flag);
-  const int in_warp = __popc(ballot & ((1u << lane) - 1u));
-  if (lane == 0) scratch[warp] = __popc(ballot);
-  __syncthreads();
-  if (warp == 0) {
-    int v = lane < nwarps ? scratch[lane] : 0;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, v, d);
-      if (lane >= (unsigned)d) v += t;
-    }
-    scratch[lane] = v;  // inclusive prefix over warps
-  }
-  __syncthreads();
-  const int warp_off = warp ? scratch[warp - 1] : 0;
-  *total = scratch[nwarps - 1];
-  __syncthreads();  // scratch may be reused right after
-  return warp_off + in_warp;
-}
 
 // Exclusive prefix sum of `value` over the block, in thread order.
 __device__ __forceinline__ int block_exclusive_sum(int value, int* scratch, int* total) {
@@ -111,20 +87,28 @@ struct BinConsts {
   int bs_us[kCB];
 };
 
-// The 9-step debt-carrying relocation of one pixel; src points at its bin 0
-// and `plane` is the stride between bins.
-__device__ __forceinline__ void relocate(const float* __restrict__ src, long plane, Pixel& px) {
+// The 9-step debt-carrying relocation of one pixel from its 10 bin values.
+__device__ __forceinline__ void relocate_values(const float (&x)[kCB + 1], Pixel& px) {
   float debt = 0.0f;
 #pragma unroll
   for (int ci = 0; ci < kCB; ++ci) {
-    const float avail = __fsub_rn(src[ci * plane], debt);
+    const float avail = __fsub_rn(x[ci], debt);
     const float cf = ceilf(__fsub_rn(avail, 1e-6f));
     debt = __fsub_rn(cf, avail);
     px.cnt[ci] = __float2int_rz(cf);
     px.tend[ci] = debt;
   }
   // fold the final input bin into the last output bin, truncating
-  px.cnt[kCB - 1] += __float2int_rz(__fsub_rn(src[kCB * plane], debt));
+  px.cnt[kCB - 1] += __float2int_rz(__fsub_rn(x[kCB], debt));
+}
+
+// The same from memory: src points at the pixel's bin 0 and `plane` is the
+// stride between bins.
+__device__ __forceinline__ void relocate(const float* __restrict__ src, long plane, Pixel& px) {
+  float x[kCB + 1];
+#pragma unroll
+  for (int ci = 0; ci <= kCB; ++ci) x[ci] = src[ci * plane];
+  relocate_values(x, px);
 }
 
 // Candidates a voxel emits: 'slope' all its events up to mepv, 'none' the
@@ -165,14 +149,3 @@ __device__ __forceinline__ int kx_of(const Pixel& px, int ci, float vs2, int mep
 }
 
 }  // namespace v2ce
-
-// keys/pay rows of `width`; slots at or past kept[row] become INVALID / 0.
-// Grid (ceil(width / blockDim.x), rows).
-static __global__ void v2ce_fill_tail_kernel(int* __restrict__ keys, int* __restrict__ pay,
-                                             const int* __restrict__ kept, long width) {
-  const long col = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long row = blockIdx.y;
-  if (col >= width || col < kept[row]) return;
-  keys[row * width + col] = V2CE_INVALID;
-  if (pay) pay[row * width + col] = 0;
-}

@@ -18,182 +18,280 @@
 // drop 0).
 //
 // Bound on the H100: device-memory bytes. The voxel grid (24 x 2 x 10 x 260
-// x 346 f32 = 173 MB on the main path) dominates; the compacted rows are
-// 216 x 16384 ints.
-// Design: count pass -> scan -> write pass -> tail fill. Both passes
-// recompute the relocation from the 10 loads of a pixel (one thread per
-// pixel, coalesced along w), so no count/tendency/slope grid ever reaches
-// device memory; the second read of the voxels costs one more 173 MB
-// stream. The count pass stores per (frame, bin, tile of 256 pixels) counts,
-// one block per row scans them in tile order, and the write pass ranks each
-// candidate inside its tile with warp ballots: positions are exact and
-// deterministic, with no atomics. Sums are integer and exact in any order.
+// x 346 f32 = 172.7 MB on the main path) dominates; the compacted rows are
+// 216 x 16384 ints (keys and kx: 28.3 MB), the scratch 0.37 MB.
+// Design: one launch (after the memset of its scratch) on the single-pass
+// look-back core of compact_core.cuh, so the voxels are read once. A
+// compute tile is 1,024 pixels of one frame, 256 threads. The tile's 10 bin
+// planes are staged in shared memory (40 KB) by 16-byte cp.async copies of
+// 4 pixels, 10 a thread all in flight at once (4-byte copies where H*W % 4
+// != 0 or the grid is not 16-byte aligned): the coalesced sweep of a
+// register load, but the values wait in shared memory, not in registers,
+// while the tile looks back, so 4 blocks fit an SM. Holding them in
+// registers (85 a thread, 2 blocks an SM) took 0.2134 ms at the main-path
+// chunk (chip_smoke.py's stage-2 timings, NVIDIA H100 80GB HBM3, 700.00
+// W). Then lane l of warp w takes
+// pixel q * 256 + 32 w + l of step q (q = 0..3), runs the relocation from
+// shared memory to mark the bins it emits in, and one ballot a (step, bin)
+// counts a warp's candidates; one warp a bin scans its 32 (step, warp)
+// counts in pixel order. The tile publishes 11 aggregates for its frame (9
+// row counts, emit, drop) and looks back for a bin's offset only where it
+// has candidates in that bin (stopping once the offset passes capp), and
+// for every total in the frame's last tile. Each thread then runs the
+// relocation again (arithmetic on shared memory) and writes its kept
+// candidates at offset + (step, warp) prefix + its place in the ballot:
+// a warp's keys of a (step, bin) land as one run, so the stores coalesce
+// (ranking a thread's own 4 consecutive pixels scattered them). The fill
+// tiles that follow wait for each row's total, write the tail [kept,
+// capp), kept and total, and per frame emit and drop. The TPU kernel's
+// block order and scratch accumulators are not carried over; the design
+// this replaces (a count pass, a scan, a write pass that read the voxels
+// again, a tail fill) is in PERF.md's findings.
 
-#include "common.cuh"
+#include "compact_core.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using v2ce::kCB;
 
-constexpr int kThreads = 256;        // pixels per tile
+constexpr int kThreads = 256;
+constexpr int kPixels = 4;                      // pixels a thread
+constexpr int kTilePixels = kThreads * kPixels; // ops/gen.py's TILE_PIXELS
+constexpr int kQ = kCB + 2;                     // per tile: 9 row counts, emit, drop
+constexpr int kFill = kThreads * 16;            // output slots per fill tile
 constexpr int kWarps = kThreads / 32;
-constexpr int kScanThreads = 1024;
+constexpr int kBlocksPerSM = 4;                 // 4 x 40 KB of staged voxels an SM
 
-template <bool kWrite, bool kSlope>
-__global__ void __launch_bounds__(kThreads)
-gen_pass_kernel(const float* __restrict__ vox, v2ce::BinConsts c, int P, int H, int W,
-                int vox_bits, int ts_cap, int mepv, int capp,
-                float tscale, float vs2,
-                int* __restrict__ tile_counts, int* __restrict__ tile_emit,
-                int* __restrict__ tile_drop, const int* __restrict__ tile_off,
-                int* __restrict__ keys, int* __restrict__ kx) {
-  __shared__ int wsum[kCB][kWarps];
-  __shared__ int red[2][kWarps];
-  const int n_tiles = gridDim.x;
-  const int tile = blockIdx.x;
-  const int b = blockIdx.y;
-  const long hw = (long)H * W;
-  const int seg = (int)(P * hw);
-  const int v = tile * kThreads + threadIdx.x;
-  const bool in = v < seg;
-  const unsigned lane = threadIdx.x & 31u, warp = threadIdx.x >> 5;
-
-  v2ce::Pixel px;
-  if (in) {
-    const int po = (int)(v / hw);
-    const long rem = v - po * hw;
-    const float* src = vox + ((long)b * P + (P - 1 - po)) * (kCB + 1) * hw + rem;
-    v2ce::relocate(src, hw, px);
-  } else {
-#pragma unroll
-    for (int ci = 0; ci < kCB; ++ci) { px.cnt[ci] = 0; px.tend[ci] = 0.0f; }
-  }
-
-  unsigned ballots[kCB];
-  int emit_sum = 0, drop_sum = 0;
-#pragma unroll
-  for (int ci = 0; ci < kCB; ++ci) {
-    const int e = v2ce::emit_of(px.cnt[ci], mepv, kSlope);
-    emit_sum += e;
-    drop_sum += v2ce::drop_of(px.cnt[ci], mepv, kSlope);
-    ballots[ci] = __ballot_sync(0xffffffffu, in && e > 0);
-    if (lane == 0) wsum[ci][warp] = __popc(ballots[ci]);
-  }
-
-  if (!kWrite) {
-    for (int d = 16; d > 0; d >>= 1) {
-      emit_sum += __shfl_down_sync(0xffffffffu, emit_sum, d);
-      drop_sum += __shfl_down_sync(0xffffffffu, drop_sum, d);
-    }
-    if (lane == 0) { red[0][warp] = emit_sum; red[1][warp] = drop_sum; }
-    __syncthreads();
-    if (threadIdx.x < kCB) {
-      int s = 0;
-      for (int w = 0; w < kWarps; ++w) s += wsum[threadIdx.x][w];
-      tile_counts[((long)b * kCB + threadIdx.x) * n_tiles + tile] = s;
-    }
-    if (threadIdx.x == 0) {
-      int se = 0, sd = 0;
-      for (int w = 0; w < kWarps; ++w) { se += red[0][w]; sd += red[1][w]; }
-      tile_emit[(long)b * n_tiles + tile] = se;
-      tile_drop[(long)b * n_tiles + tile] = sd;
+template <bool kSlope, bool kVec>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+gen_compact_kernel(const float* __restrict__ vox, v2ce::BinConsts c, int P, int hw,
+                   int n_tiles, int nfill, int frames, int vox_bits, int ts_cap, int mepv,
+                   int capp, float tscale, float vs2, unsigned* __restrict__ ticket,
+                   unsigned long long* __restrict__ status, int* __restrict__ keys,
+                   int* __restrict__ kx, int* __restrict__ kept, int* __restrict__ total,
+                   int* __restrict__ emit, int* __restrict__ drop) {
+  __shared__ __align__(16) float stage[kCB + 1][kTilePixels];   // the tile's voxels
+  __shared__ unsigned counts[kCB][kPixels * kWarps];   // per (step, warp), then its prefix
+  __shared__ unsigned sums[2][kWarps];                  // emit and drop per warp
+  __shared__ unsigned agg[kQ], off[kQ];
+  __shared__ unsigned slot_ticket, slot_fill;
+  const unsigned t = v2ce::core::take_ticket(ticket, &slot_ticket);
+  const unsigned compute = (unsigned)frames * (unsigned)n_tiles;
+  if (t >= compute) {   // a fill tile: one chunk of a row's tail
+    const long row = (t - compute) / nfill;
+    const int chunk = (int)((t - compute) % nfill);
+    const long b = row / kCB;
+    // quantity q of frame b: status words status[(b * kQ + q) * n_tiles + tile]
+    const unsigned long long* last =
+        n_tiles ? status + (row + b * 2) * n_tiles + n_tiles - 1 : nullptr;
+    v2ce::core::fill_row(last, keys, kSlope ? kx : nullptr, kept, total, row, capp, kFill,
+                         chunk, &slot_fill);
+    if (chunk == 0 && row % kCB == 0 && threadIdx.x == 0) {   // the frame's sums
+      emit[b] = last ? (int)v2ce::core::wait_prefix(last + (long)kCB * n_tiles) : 0;
+      drop[b] = last ? (int)v2ce::core::wait_prefix(last + (long)(kCB + 1) * n_tiles) : 0;
     }
     return;
   }
+  const long b = t / n_tiles;
+  const int j = (int)(t % n_tiles);
+  const int seg = P * hw;
+  const int tile0 = j * kTilePixels;   // the tile's first pixel in the frame
+  const unsigned lane = v2ce::lane_id(), warp = v2ce::warp_id();
 
-  __syncthreads();
+  // stage the 10 bin planes of the tile's pixels in the frame: 16-byte
+  // copies of 4 pixels (10 a thread, all in flight at once), or pixel by
+  // pixel where the planes do not allow them
+  if (kVec) {   // hw % 4 == 0: 4 pixels share one plane, all in or all out
+    const int v = tile0 + kPixels * (int)threadIdx.x;
+    if (v < seg) {
+      const int po = v / hw;
+      const float* src = vox + ((b * P + (P - 1 - po)) * (kCB + 1)) * (long)hw + (v - po * hw);
 #pragma unroll
-  for (int ci = 0; ci < kCB; ++ci) {
-    if (!(in && ((ballots[ci] >> lane) & 1u))) continue;
-    int pos = tile_off[((long)b * kCB + ci) * n_tiles + tile];
-    for (unsigned w = 0; w < warp; ++w) pos += wsum[ci][w];
-    pos += __popc(ballots[ci] & ((1u << lane) - 1u));
-    if (pos < capp) {
-      const long at = ((long)b * kCB + ci) * capp + pos;
+      for (int ci = 0; ci <= kCB; ++ci)
+        v2ce_hopper::cp_async16(v2ce_hopper::smem_u32(&stage[ci][v - tile0]),
+                                src + (long)ci * hw);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kPixels; ++q) {
+      const int v = tile0 + q * kThreads + (int)threadIdx.x;
+      if (v < seg) {
+        const int po = v / hw;
+        const float* src =
+            vox + ((b * P + (P - 1 - po)) * (kCB + 1)) * (long)hw + (v - po * hw);
+#pragma unroll
+        for (int ci = 0; ci <= kCB; ++ci)
+          v2ce_hopper::cp_async4(v2ce_hopper::smem_u32(&stage[ci][v - tile0]),
+                                 src + (long)ci * hw, true);
+      }
+    }
+  }
+  v2ce_hopper::cp_async_wait_all();
+  __syncthreads();
+
+  // Step q: lane l of warp w takes pixel q * 256 + 32 w + l of the tile, so
+  // a warp's candidates of a (step, bin) are one run of the bin's row.
+  const auto pixel = [&](int q, v2ce::Pixel& px) {
+    float x[kCB + 1];
+#pragma unroll
+    for (int ci = 0; ci <= kCB; ++ci) x[ci] = stage[ci][q * kThreads + threadIdx.x];
+    v2ce::relocate_values(x, px);
+  };
+  unsigned long long bits = 0;   // bit 4 * ci + q: pixel q emits in bin ci
+  unsigned esum = 0u, dsum = 0u;
+#pragma unroll
+  for (int q = 0; q < kPixels; ++q) {
+    if (tile0 + q * kThreads + (int)threadIdx.x >= seg) continue;
+    v2ce::Pixel px;
+    pixel(q, px);
+#pragma unroll
+    for (int ci = 0; ci < kCB; ++ci) {
+      const int e = v2ce::emit_of(px.cnt[ci], mepv, kSlope);
+      esum += (unsigned)e;
+      dsum += (unsigned)v2ce::drop_of(px.cnt[ci], mepv, kSlope);
+      if (e > 0) bits |= 1ull << (4 * ci + q);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kPixels; ++q)
+#pragma unroll
+    for (int ci = 0; ci < kCB; ++ci) {
+      const unsigned bal = __ballot_sync(0xffffffffu, (bits >> (4 * ci + q)) & 1ull);
+      if (lane == 0) counts[ci][q * kWarps + warp] = __popc(bal);
+    }
+  esum = __reduce_add_sync(0xffffffffu, esum);
+  dsum = __reduce_add_sync(0xffffffffu, dsum);
+  if (lane == 0) {
+    sums[0][warp] = esum;
+    sums[1][warp] = dsum;
+  }
+  __syncthreads();
+
+  // per bin, the exclusive scan of its 32 (step, warp) counts in pixel
+  // order (warp ci % 8 takes bin ci); the tile's 11 aggregates: 9 row
+  // counts, emit and drop
+  for (int ci = (int)warp; ci < kCB; ci += kWarps) {
+    const unsigned c = counts[ci][lane];
+    unsigned incl = c;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned u = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= (unsigned)d) incl += u;
+    }
+    counts[ci][lane] = incl - c;
+    if (lane == 31) agg[ci] = incl;
+  }
+  if (threadIdx.x < 2) {
+    unsigned a = 0u;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a += sums[threadIdx.x][w];
+    agg[kCB + threadIdx.x] = a;
+  }
+  __syncthreads();
+
+  // publish the 11 aggregates, then look back where it is needed: a bin's
+  // offset where the tile places candidates in it (stopping once it
+  // passes capp), and every total in the frame's last tile. Warp q % 8
+  // takes quantity q.
+  unsigned long long* frame_status = status + b * kQ * n_tiles;
+  const bool last = j == n_tiles - 1;
+  if (threadIdx.x < kQ)
+    v2ce::core::publish_aggregate(frame_status + (long)threadIdx.x * n_tiles, 1, j,
+                                  agg[threadIdx.x]);
+  // another thread stores quantity q's inclusive prefix over the same word:
+  // the barrier orders it after the aggregate, so no aggregate lands last
+  __syncthreads();
+  for (int q = (int)warp; q < kQ; q += kWarps) {
+    unsigned o = 0xffffffffu;   // no candidate of this tile lands in the row
+    if (last)
+      o = v2ce::core::warp_lookback(frame_status + q * n_tiles, 1, j, agg[q]);
+    else if (q < kCB && agg[q] > 0)
+      o = v2ce::core::warp_lookback(frame_status + q * n_tiles, 1, j, agg[q], (unsigned)capp);
+    if (lane == 0) off[q] = o;
+  }
+  __syncthreads();
+  bool any = false;
+#pragma unroll
+  for (int ci = 0; ci < kCB; ++ci) any |= off[ci] < (unsigned)capp;
+  if (!any) return;   // uniform
+
+  // each candidate at its row offset + its (step, warp) prefix + its
+  // lane's place in the step's ballot, below capp
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int q = 0; q < kPixels; ++q) {
+    unsigned pos[kCB];
+#pragma unroll
+    for (int ci = 0; ci < kCB; ++ci) {
+      const bool mine = (bits >> (4 * ci + q)) & 1ull;
+      const unsigned bal = __ballot_sync(0xffffffffu, mine);
+      pos[ci] = mine ? off[ci] + counts[ci][q * kWarps + warp] + __popc(bal & below)
+                     : 0xffffffffu;
+    }
+    if (!((bits >> q) & 0x111111111ull)) continue;
+    v2ce::Pixel px;
+    pixel(q, px);
+    const int v = tile0 + q * kThreads + (int)threadIdx.x;
+#pragma unroll
+    for (int ci = 0; ci < kCB; ++ci) {
+      if (pos[ci] >= (unsigned)capp) continue;
+      const long at = (b * kCB + ci) * capp + pos[ci];
       keys[at] = v2ce::key_of(px, ci, v, c, tscale, vox_bits, ts_cap);
       if (kSlope) kx[at] = v2ce::kx_of(px, ci, vs2, mepv);
     }
   }
 }
 
-// One block per (frame, bin) row: exclusive scan of its tile counts in tile
-// order; the rows of bin 0 also reduce their frame's emit/drop tile sums.
-__global__ void __launch_bounds__(kScanThreads)
-gen_scan_kernel(const int* __restrict__ tile_counts, int* __restrict__ tile_off,
-                const int* __restrict__ tile_emit, const int* __restrict__ tile_drop,
-                int* __restrict__ kept, int* __restrict__ total,
-                int* __restrict__ emit, int* __restrict__ drop, int n_tiles, int capp) {
-  __shared__ int scratch[32];
-  const long row = blockIdx.x;
-  int carry = 0;
-  for (int base = 0; base < n_tiles; base += kScanThreads) {
-    const int i = base + threadIdx.x;
-    const int c = i < n_tiles ? tile_counts[row * n_tiles + i] : 0;
-    int chunk_total;
-    const int ex = v2ce::block_exclusive_sum(c, scratch, &chunk_total);
-    if (i < n_tiles) tile_off[row * n_tiles + i] = carry + ex;
-    carry += chunk_total;
-  }
-  if (threadIdx.x == 0) {
-    kept[row] = carry < capp ? carry : capp;
-    total[row] = carry;
-  }
-  if (row % kCB == 0) {
-    const long b = row / kCB;
-    int e = 0, d = 0;
-    for (int i = threadIdx.x; i < n_tiles; i += kScanThreads) {
-      e += tile_emit[b * n_tiles + i];
-      d += tile_drop[b * n_tiles + i];
-    }
-    e = v2ce::block_sum(e, scratch);
-    d = v2ce::block_sum(d, scratch);
-    if (threadIdx.x == 0) { emit[b] = e; drop[b] = d; }
-  }
-}
-
-template <bool kSlope>
+template <bool kSlope, bool kVec>
 void launch(const float* vox, const v2ce::BinConsts& c, int* keys, int* kx, int* kept,
-            int* total, int* emit, int* drop, int* tile_counts, int* tile_off,
-            int* tile_emit, int* tile_drop, int B, int P, int H, int W, int vox_bits,
-            int ts_cap, int mepv, int capp, float tscale, float vs2, cudaStream_t stream) {
-  const int seg = P * H * W;
-  const int n_tiles = (seg + kThreads - 1) / kThreads;
-  dim3 grid(n_tiles, B);
-  gen_pass_kernel<false, kSlope><<<grid, kThreads, 0, stream>>>(
-      vox, c, P, H, W, vox_bits, ts_cap, mepv, capp, tscale, vs2,
-      tile_counts, tile_emit, tile_drop, nullptr, nullptr, nullptr);
-  gen_scan_kernel<<<B * kCB, kScanThreads, 0, stream>>>(
-      tile_counts, tile_off, tile_emit, tile_drop, kept, total, emit, drop, n_tiles, capp);
-  gen_pass_kernel<true, kSlope><<<grid, kThreads, 0, stream>>>(
-      vox, c, P, H, W, vox_bits, ts_cap, mepv, capp, tscale, vs2,
-      nullptr, nullptr, nullptr, tile_off, keys, kx);
-  dim3 tail((capp + kThreads - 1) / kThreads, B * kCB);
-  v2ce_fill_tail_kernel<<<tail, kThreads, 0, stream>>>(keys, kx, kept, capp);
+            int* total, int* emit, int* drop, unsigned long long* scratch, int B, int P, int hw,
+            int n_tiles, int nfill, unsigned grid, int vox_bits, int ts_cap, int mepv,
+            int capp, float tscale, float vs2, cudaStream_t stream) {
+  static const cudaError_t carveout = cudaFuncSetAttribute(   // room for 4 tiles an SM
+      gen_compact_kernel<kSlope, kVec>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  (void)carveout;
+  gen_compact_kernel<kSlope, kVec><<<grid, kThreads, 0, stream>>>(
+      vox, c, P, hw, n_tiles, nfill, B, vox_bits, ts_cap, mepv, capp, tscale, vs2,
+      reinterpret_cast<unsigned*>(scratch), scratch + 1, keys, kx, kept, total, emit, drop);
 }
 
 }  // namespace
 
 // slope != 0: strategy 'slope' (kx written); 0: strategy 'none' (kx may be
-// null).
+// null). bs_f and bs_us are host arrays of the 9 bin constants. The launch
+// plan (ops/gen.plan): `tiles` compute tiles a frame (ceil(P*H*W / 1024)),
+// `fills` fill tiles a (frame, bin) row (ceil(capp / 4096), at least one)
+// and `words` 64-bit scratch words, 1 + B * tiles * 11 (the ticket, then
+// the status words of quantity q of frame b, tile by tile, at (b * 11 + q)
+// * tiles), which are zeroed here before the launch; the grid is B *
+// (tiles + 9 * fills) blocks. Returns cudaErrorInvalidValue, touching
+// nothing, where the plan is not the kernel's.
 extern "C" int v2ce_gen_compact(const float* vox, const float* bs_f, const int* bs_us,
-                                int* keys, int* kx, int* kept, int* total,
-                                int* emit, int* drop, int* tile_counts, int* tile_off,
-                                int* tile_emit, int* tile_drop,
-                                int B, int P, int H, int W, int vox_bits, int ts_cap,
-                                int mepv, int slope, int capp, float tscale, float vs2,
-                                cudaStream_t stream) {
-  if (B <= 0) return (int)cudaGetLastError();
+                                int* keys, int* kx, int* kept, int* total, int* emit,
+                                int* drop, unsigned long long* scratch, int B, int P, int H,
+                                int W, int vox_bits, int ts_cap, int mepv, int slope,
+                                int capp, float tscale, float vs2, int tiles, int fills,
+                                long long words, cudaStream_t stream) {
+  const long seg = (long)P * H * W;
+  if (B < 0 || seg < 0 || capp < 0 || tiles != (int)((seg + kTilePixels - 1) / kTilePixels) ||
+      fills != v2ce::core::fill_chunks(capp, kFill) ||
+      words != 1 + (long long)B * tiles * kQ ||
+      (long long)B * (tiles + (long long)kCB * fills) >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
   v2ce::BinConsts c;
-  // the per-bin constants arrive as host arrays (ctypes pointers)
   for (int i = 0; i < kCB; ++i) { c.bs_f[i] = bs_f[i]; c.bs_us[i] = bs_us[i]; }
-  if (slope) {
-    launch<true>(vox, c, keys, kx, kept, total, emit, drop, tile_counts, tile_off,
-                 tile_emit, tile_drop, B, P, H, W, vox_bits, ts_cap, mepv, capp,
-                 tscale, vs2, stream);
-  } else {
-    launch<false>(vox, c, keys, nullptr, kept, total, emit, drop, tile_counts, tile_off,
-                  tile_emit, tile_drop, B, P, H, W, vox_bits, ts_cap, mepv, capp,
-                  tscale, vs2, stream);
-  }
+  const int hw = H * W;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, words * sizeof(unsigned long long), stream);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)B * (unsigned)(tiles + kCB * fills);
+  const bool vec = hw % 4 == 0 && (reinterpret_cast<unsigned long long>(vox) & 15u) == 0;
+  using Launch = decltype(&launch<true, true>);
+  const Launch go = slope ? (vec ? &launch<true, true> : &launch<true, false>)
+                          : (vec ? &launch<false, true> : &launch<false, false>);
+  go(vox, c, keys, kx, kept, total, emit, drop, scratch, B, P, hw, tiles, fills, grid,
+     vox_bits, ts_cap, mepv, capp, tscale, vs2, stream);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // The Hopper building blocks shared by the wgmma kernels (csrc/conv_igemm.cu:
 // K9-K11 and K12's f32 product; csrc/wino4.cu: K12's fused bf16 kernel),
 // the cost volume (csrc/correlation.cu: K8) and the row copy
-// (csrc/stream_copy.cu: K16): mbarriers, TMA tensor loads and bulk copies,
+// (csrc/stream_copy.cu: K16), and K1's voxel staging (csrc/gen_compact.cu):
+// mbarriers, TMA tensor loads and bulk copies, cp.async,
 // wgmma's shared-memory descriptor and its bf16 products, the live-step
 // pre-pass, and the host-side tensor-map encoders.
 // Everything is in an anonymous namespace and inline, so each translation
@@ -120,6 +121,14 @@ __device__ __forceinline__ void bulk_wait() {
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(reinterpret_cast<uint64_t>(src)), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// a 16-byte asynchronous copy into shared memory that skips L1 (both
+// addresses 16-byte aligned)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src))
                : "memory");
 }
 

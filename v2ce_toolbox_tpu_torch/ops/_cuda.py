@@ -48,7 +48,7 @@ _SOURCES = {
     "stream_copy.cu": (),
     "roofline.cu": (),
 }
-_HEADERS = ("common.cuh", "conv_igemm.cuh", "hopper.cuh")
+_HEADERS = ("common.cuh", "compact_core.cuh", "conv_igemm.cuh", "hopper.cuh")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,11 +56,11 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # entry point -> argtypes (the trailing pointer is the CUDA stream)
 _SIGNATURES = {
-    "v2ce_compact_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "v2ce_compact_rows_window": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "v2ce_compact_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
+    "v2ce_compact_rows_window": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
     "v2ce_merge_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "v2ce_gen_compact": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "v2ce_gen_compact": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _L, _P],
     "v2ce_gen_pack": [_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "v2ce_append_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -25,7 +25,8 @@ import torch
 from v2ce_toolbox_tpu_torch.ops import _cuda
 
 INVALID = 2 ** 31 - 1          # int32 max marks an empty slot
-_TILE = 8192                   # keys per block of csrc/compact_rows.cu
+_TILE = 4096                   # keys per compute tile of csrc/compact_rows.cu
+_FILL = 16384                  # output slots per tail chunk
 
 # launches of each kernel since the last reset (the wrappers add one per
 # call that reaches the card)
@@ -57,6 +58,17 @@ def check_cuda_int32(name: str, t: torch.Tensor, shape) -> None:
 # ---------------------------------------------------------------------------
 # K2: stable per-row compaction
 # ---------------------------------------------------------------------------
+
+def plan(rows: int, n: int, capp: int) -> Tuple[int, int, int]:
+    """K2's launch plan (csrc/compact_rows.cu, which checks it): (compute
+    tiles a row, fill tiles a row, 64-bit scratch words). A row of n keys
+    is ceil(n / 4096) compute tiles; its capp-wide output's tail is written
+    by fill tiles, one a chunk of 16,384 slots (at least one, which also
+    writes kept and total); the scratch is the ticket and one status word
+    per compute tile."""
+    tiles = -(-n // _TILE)
+    return tiles, max(1, -(-capp // _FILL)), 1 + rows * tiles
+
 
 def compact_rows_torch(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
                        *, cap: int, chunk: int, algo: str = "window") -> Out:
@@ -117,24 +129,27 @@ def compact_rows(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
         payloads = tuple(torch.nn.functional.pad(p, (0, pad)) for p in payloads)
         n += pad
     capp = _round_up(cap, chunk)
-    if r > 65535 or n > (1 << 31) - _TILE or capp > (1 << 31) - _TILE:
+    tiles, fills, words = plan(r, n, capp)
+    if n > (1 << 31) - _TILE or capp > (1 << 31) - _FILL or r * (tiles + fills) >= 1 << 31:
         raise ValueError(f"compact_rows: ({r}, {n}) -> cap {capp} exceeds the kernel's "
                          "limits")
-    out_k = torch.empty((r, capp), dtype=torch.int32, device=keys.device)
+    dev = keys.device
+    out_k = torch.empty((r, capp), dtype=torch.int32, device=dev)
     out_p = tuple(torch.empty_like(out_k) for _ in payloads)
-    tile_counts = torch.empty((r, -(-n // _TILE)), dtype=torch.int32, device=keys.device)
-    kept = torch.empty((r,), dtype=torch.int32, device=keys.device)
-    total = torch.empty_like(kept)
+    # one allocation: the kernel's 64-bit scratch words (zeroed by the C
+    # entry), then kept and total
+    buf = torch.empty((2 * words + 2 * r,), dtype=torch.int32, device=dev)
+    ptr = buf.data_ptr()
     name = "compact_rows_window" if algo == "window" else "compact_rows"
-    with torch.cuda.device(keys.device):
+    with torch.cuda.device(dev):
         err = getattr(_cuda.lib(), f"v2ce_{name}")(
             keys.data_ptr(), payloads[0].data_ptr() if payloads else None,
             out_k.data_ptr(), out_p[0].data_ptr() if out_p else None,
-            tile_counts.data_ptr(), kept.data_ptr(), total.data_ptr(), r, n, capp,
+            ptr, ptr + 8 * words, ptr + 8 * words + 4 * r, r, n, capp, tiles, fills, words,
             _cuda.stream_of(keys))
     _cuda.check(err, name)
     launches[name] += 1
-    return out_k, out_p, kept, total
+    return out_k, out_p, buf[2 * words:2 * words + r], buf[2 * words + r:]
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ W <= 128 and whenever no capacity binds.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -30,6 +31,9 @@ from v2ce_toolbox_tpu_torch.ops.compact import (
 from v2ce_toolbox_tpu_torch.ops.ldati import f32, fma32, relocate_counts, slope_k
 
 launches = {"gen_compact": 0, "gen_pack": 0}
+TILE_PIXELS = 1024     # pixels per compute tile of csrc/gen_compact.cu
+FILL = 4096            # output slots per fill tile
+QUANTITIES = 11        # a tile's published numbers: 9 row counts, emit, drop
 
 GenOut = Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor, torch.Tensor,
                torch.Tensor, torch.Tensor]
@@ -111,9 +115,29 @@ def _check_voxels(name: str, voxels: torch.Tensor, strategy: str) -> None:
         raise ValueError(f"{name}: grid {tuple(voxels.shape)} too large")
 
 
+@functools.lru_cache(maxsize=64)
 def _bin_args(cb: int, fps: int, t0: float):
+    """The kernels' per-call constants, built once per (cb, fps, t0): the
+    bin starts as host arrays (the C entries copy them into the kernel's
+    by-value `BinConsts`), the chain timestamp scale and voxel_step^2."""
     bs_np, bs_us_np = bin_constants(cb, fps, t0)
-    return ((ctypes.c_float * cb)(*bs_np.tolist()), (ctypes.c_int * cb)(*bs_us_np.tolist()))
+    bs_c = (ctypes.c_float * cb)(*bs_np.tolist())
+    bs_us_c = (ctypes.c_int * cb)(*bs_us_np.tolist())
+    voxel_step = 1.0 / fps / cb
+    return (bs_c, bs_us_c, ctypes.cast(bs_c, ctypes.c_void_p),
+            ctypes.cast(bs_us_c, ctypes.c_void_p), float(tend_scale(cb, fps)),
+            float(np.float32(voxel_step ** 2)))
+
+
+def plan(frames: int, seg: int, capp: int) -> Tuple[int, int, int]:
+    """K1's launch plan (csrc/gen_compact.cu, which checks it) for `frames`
+    frames of seg = P*H*W pixels: (compute tiles a frame, fill tiles a
+    (frame, bin) row, 64-bit scratch words). A frame is ceil(seg / 1024)
+    compute tiles; a capp-wide row is ceil(capp / 4096) fill tiles, at
+    least one (it writes kept and total); the scratch is the ticket and 11
+    status words per compute tile."""
+    tiles = -(-seg // TILE_PIXELS)
+    return tiles, max(1, -(-capp // FILL)), 1 + frames * tiles * QUANTITIES
 
 
 def gen_pack(voxels: torch.Tensor, *, fps: int, mepv: int, vox_bits: int,
@@ -141,16 +165,13 @@ def gen_pack(voxels: torch.Tensor, *, fps: int, mepv: int, vox_bits: int,
     kx = torch.empty_like(keys) if slope else None
     emit = torch.empty((bb,), **i32)
     drop = torch.empty_like(emit)
-    bs_c, bs_us_c = _bin_args(cb, fps, t0)
-    voxel_step = 1.0 / fps / cb
+    _, _, bs_p, bs_us_p, tscale, vs2 = _bin_args(cb, fps, t0)
     with torch.cuda.device(voxels.device):
         err = _cuda.lib().v2ce_gen_pack(
-            voxels.data_ptr(), ctypes.cast(bs_c, ctypes.c_void_p),
-            ctypes.cast(bs_us_c, ctypes.c_void_p), keys.data_ptr(),
+            voxels.data_ptr(), bs_p, bs_us_p, keys.data_ptr(),
             kx.data_ptr() if slope else None, emit.data_ptr(), drop.data_ptr(),
             bb, p, h, w, vox_bits, (1 << (31 - vox_bits)) - 2, mepv, int(slope),
-            float(tend_scale(cb, fps)), float(np.float32(voxel_step ** 2)),
-            _cuda.stream_of(voxels))
+            tscale, vs2, _cuda.stream_of(voxels))
     _cuda.check(err, "gen_pack")
     launches["gen_pack"] += 1
     return keys, kx, emit, drop
@@ -190,32 +211,28 @@ def gen_compact(voxels: torch.Tensor, *, fps: int, mepv: int, vox_bits: int,
     cb = c - 1
     slope = strategy == "slope"
     capp = _round_up(cap_bin, chunk)
-    n_tiles = -(-(p * h * w) // 256)
+    tiles, fills, words = plan(bb, p * h * w, capp)
+    if (p * h * w >= (1 << 31) - TILE_PIXELS or capp >= (1 << 31) - FILL
+            or bb * (tiles + cb * fills) >= 1 << 31):
+        raise ValueError(f"gen_compact: grid {tuple(voxels.shape)} -> cap {capp} exceeds "
+                         "the kernel's limits")
     dev = voxels.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    keys = torch.empty((bb * cb, capp), **i32)
-    kx = torch.empty_like(keys) if slope else None
-    kept = torch.empty((bb * cb,), **i32)
-    total = torch.empty_like(kept)
-    emit = torch.empty((bb,), **i32)
-    drop = torch.empty_like(emit)
-    tile_counts = torch.empty((bb * cb * n_tiles,), **i32)
-    tile_off = torch.empty_like(tile_counts)
-    tile_emit = torch.empty((bb * n_tiles,), **i32)
-    tile_drop = torch.empty_like(tile_emit)
-    bs_c, bs_us_c = _bin_args(cb, fps, t0)
-    voxel_step = 1.0 / fps / cb
+    r = bb * cb
+    rows = torch.empty((2 if slope else 1, r, capp), dtype=torch.int32, device=dev)  # keys, kx
+    # one allocation: the kernel's 64-bit scratch words (zeroed by the C
+    # entry), then kept, total, emit and drop
+    buf = torch.empty((2 * words + 2 * r + 2 * bb,), dtype=torch.int32, device=dev)
+    ptr, rptr = buf.data_ptr(), rows.data_ptr()
+    at = 2 * words                     # int32 offsets of kept, total, emit, drop
+    _, _, bs_p, bs_us_p, tscale, vs2 = _bin_args(cb, fps, t0)
     with torch.cuda.device(dev):
         err = _cuda.lib().v2ce_gen_compact(
-            voxels.data_ptr(), ctypes.cast(bs_c, ctypes.c_void_p),
-            ctypes.cast(bs_us_c, ctypes.c_void_p),
-            keys.data_ptr(), kx.data_ptr() if slope else None, kept.data_ptr(),
-            total.data_ptr(),
-            emit.data_ptr(), drop.data_ptr(), tile_counts.data_ptr(),
-            tile_off.data_ptr(), tile_emit.data_ptr(), tile_drop.data_ptr(),
+            voxels.data_ptr(), bs_p, bs_us_p, rptr, rptr + 4 * r * capp if slope else None,
+            ptr + 4 * at, ptr + 4 * (at + r), ptr + 4 * (at + 2 * r),
+            ptr + 4 * (at + 2 * r + bb), ptr,
             bb, p, h, w, vox_bits, (1 << (31 - vox_bits)) - 2, mepv, int(slope), capp,
-            float(tend_scale(cb, fps)), float(np.float32(voxel_step ** 2)),
-            _cuda.stream_of(voxels))
+            tscale, vs2, tiles, fills, words, _cuda.stream_of(voxels))
     _cuda.check(err, "gen_compact")
     launches["gen_compact"] += 1
-    return keys, kx, kept, total, emit, drop
+    return (rows[0], rows[1] if slope else None, buf[at:at + r], buf[at + r:at + 2 * r],
+            buf[at + 2 * r:at + 2 * r + bb], buf[at + 2 * r + bb:])
