@@ -16,9 +16,10 @@ process with its own kernel build: two versions compared on one card
 the first TREE's. K12 is also timed on the device alone (its kernels by
 torch.profiler), so a change in the wrapper's host work can be told from
 one in the kernels; and the stage-2 set (`stage2_times`): K1 'slope' and
-'none' on a 24-frame 260x346 chunk and K2's three main-path calls and its
-grid-width call on it, by events and on the device. `--sets` picks some of
-the three sets (conv, flow, stage2; all by default).
+'none' on a 24-frame 260x346 chunk, K2's three main-path calls and its
+grid-width call on it, K3's two main-path calls and K5's EventStream
+flatten, by events and on the device. `--sets` picks some of the three
+sets (conv, flow, stage2; all by default).
 
 Phases, any failure exits non-zero before the result lines:
   1. the card's name and power limit (nvidia-smi);
@@ -36,9 +37,9 @@ Phases, any failure exits non-zero before the result lines:
      setting: median CUDA-event times of kernel and twin, each call's
      device ms from CUDA-graph replays, and each call's bound (the bytes it
      needs, see bound_ms, at the HBM rate); torch.profiler's listing of the
-     card's activity in each K1 and K2 call (K2: one kernel after the
-     memset of its scratch; K1: at most two kernels after it), and the
-     bytes K1's design moves against the voxel grid;
+     card's activity in each K1, K2, K3 and K5 call (K2, K3, K5: one kernel
+     after the memset of its scratch; K1: at most two kernels after it),
+     and the bytes K1's design moves against the voxel grid;
   4. the CLI (`cli.main`), full-width model on seeded random weights, each
      path counted (launch counters reset just before it and read just
      after; every kernel of the path must have moved): center mode on a
@@ -118,7 +119,8 @@ Phases, any failure exits non-zero before the result lines:
      replays, the port's kernels it launches, counted by torch.profiler
      (bf16: the input transform, the live-step pre-pass and the fused
      kernel, one each; f32: the input transform, the product and the
-     output transform), and the memory it takes (the allocator's peak
+     output transform; a listing that lacks one is taken again, as in
+     3), and the memory it takes (the allocator's peak
      rise); K13's device time must
      rise from k=64 to k=256 at a rate under the card's int32 issue rate; (b)
      the probe CLI with all eight probes, counted: every probe kernel must
@@ -145,7 +147,7 @@ OUT = os.path.join(ROOT, "smoke_out")      # the clips and the CLI outputs
 N_TIMED = 15
 N_DEVICE = 5                               # profiled calls of a K12 device time
 N_CLI = 3
-LISTING_TRIES = 3                          # profiler listings of one K1/K2 call at most
+LISTING_TRIES = 3                          # profiler listings of one call at most
 STAGE1_REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM device memory
 # H100 SXM dense peaks: bf16 tensor cores, and f32 on the CUDA cores (the
@@ -486,16 +488,16 @@ def device_activities(fn, torch):
 
 
 def launch_listing(torch, cases, results):
-    """The card's activities in each K1 and K2 call of phase 3: a K2 call
-    must be one kernel after one memset (of its look-back scratch), a K1
-    call at most two kernels after one.
+    """The card's activities in each K1, K2, K3 and K5 call of phase 3: a
+    K2, K3 or K5 call must be one kernel after one memset (of its look-back
+    scratch), a K1 call at most two kernels after one.
 
     torch.profiler can drop a record, most often the first activity of a
     process's first session (the call's memset), so the profiler is warmed
     up on one call first, and a listing that lacks its memset or its kernel
     is taken again, at most LISTING_TRIES times. A listing with more kernels
     or memsets than allowed, or with any copy, fails at once."""
-    limits = {"gen_compact": 2, "compact_rows": 1}
+    limits = {"gen_compact": 2, "compact_rows": 1, "merge_sorted_rows": 1, "append_rows": 1}
     _, kernel, _, cl = cases[0]
     device_activities(lambda: kernel(*cl[0][0], **cl[0][1]), torch)
     for label, kernel, _, cl in cases:
@@ -594,6 +596,34 @@ def port_launches(fn, torch):
             other += 1
     return None if not own and not other else (own, other, us / 1e3,
                                                 {k: v / 1e3 for k, v in own_us.items()})
+
+
+def listed_launches(fn, want, label, torch):
+    """port_launches of one fn call, held to `want` ({kernel: launches}).
+
+    torch.profiler can drop a record of any session (see launch_listing),
+    so a listing that lacks some of `want`'s launches, or records no
+    kernel, is taken again, at most LISTING_TRIES times; a kernel outside
+    `want`, or more launches of one than `want` allows, fails at once, and
+    so does a call that is never listed as `want`, unless the profiler
+    recorded no kernel in any listing (then None, as port_launches).
+    Retried listings are logged with "(listing N)"."""
+    recorded = False
+    for attempt in range(1, LISTING_TRIES + 1):
+        counts = port_launches(fn, torch)
+        recorded = recorded or counts is not None
+        own = counts[0] if counts else {}
+        if attempt > 1:
+            log(f"[launch listing] {label}: {own} (listing {attempt})")
+        extra = {k: c for k, c in own.items() if c > want.get(k, 0)}
+        if extra:
+            raise AssertionError(f"{label}: launched {own}, expected {want}")
+        if own == want:
+            return counts
+    if not recorded:
+        return None
+    raise AssertionError(f"{label}: torch.profiler recorded {own} {LISTING_TRIES} times, "
+                         f"expected {want}")
 
 
 def peak_scratch(fn, torch):
@@ -1410,7 +1440,12 @@ def probe_phase(torch, np, dev, counted, smi):
                 # the device alone: replays of a CUDA graph of the call; the
                 # kernels one call launches; the memory it takes
                 dk = graph_ms(kernel, torch, reps=2)
-                counts = port_launches(kernel, torch)
+                want = ({"wino4_input_bf16_kernel": 1, "wino4_fused_kernel": 1,
+                         "live_steps_kernel": 1}
+                        if dtype == torch.bfloat16 else
+                        {"wino4_input_kernel": 1, "conv_taps_f32_kernel": 1,
+                         "wino4_output_kernel": 1})
+                counts = listed_launches(kernel, want, f"conv3d_wino4 {dname} {name}", torch)
                 scratch = peak_scratch(kernel, torch)
             if counts is None:
                 how = "launches not measured (the profiler recorded no kernel)"
@@ -1419,14 +1454,6 @@ def probe_phase(torch, np, dev, counted, smi):
                 how = ("launches a call (device ms): " + ", ".join(
                     f"{k_} {c_} ({own_ms[k_]:.4f})" for k_, c_ in sorted(own.items()))
                     + f" (+ {other} PyTorch kernels around it)")
-                want = ({"wino4_input_bf16_kernel": 1, "wino4_fused_kernel": 1,
-                         "live_steps_kernel": 1}
-                        if dtype == torch.bfloat16 else
-                        {"wino4_input_kernel": 1, "conv_taps_f32_kernel": 1,
-                         "wino4_output_kernel": 1})
-                if own != want:
-                    raise AssertionError(f"conv3d_wino4 {dname} {name}: launched {own}, "
-                                         f"expected {want}")
             log(f"[probe] conv3d_wino4 {dname} {name} {xshape} -> {cout}: rel err {rel:.3e} "
                 f"(limit {tol:g}), 'nodot' identical; kernel {tk:.4f} ms ({dk:.4f} on the device), "
                 f"plain {tp:.4f} ms, cuDNN {tl:.4f} ms, bound {tb:.4f} ms ({by}, "
@@ -1782,11 +1809,14 @@ def conv_times(torch, np, dev, n=N_TIMED, sets=COMPARE_SETS):
 def stage2_times(torch, np, dev, n=N_TIMED):
     """For `--compare-conv`, through the wrappers and the stage-2 functions
     every version of the package has: on phase 3's dense (24, 2, 10, 260,
-    346) voxels, K1 'slope' and 'none' (`gen_compact[<strategy>]`) and
-    K2's three main-path calls of the fused route (`compact_rows[main i:
+    346) voxels, K1 'slope' and 'none' (`gen_compact[<strategy>]`), K2's
+    three main-path calls of the fused route (`compact_rows[main i:
     ...]`, summed in `compact_rows[main path]`) and its grid-width call,
-    each by CUDA events (median of n) and on the device by graph replays
-    (`... device`). Returns {label: ms}."""
+    K3's two main-path calls of the fused route (`merge_sorted_rows[main i:
+    ...]`, summed in `merge_sorted_rows[main path]`) and K5's flatten of the
+    EventStream route (`append_rows[...]`), each by CUDA events (median of
+    n) and on the device by graph replays (`... device`). Returns {label:
+    ms}."""
     from v2ce_toolbox_tpu_torch.config import SamplerConfig
     from v2ce_toolbox_tpu_torch.ops import compact, gen, ldati
     from v2ce_toolbox_tpu_torch.pipeline import driver
@@ -1797,15 +1827,19 @@ def stage2_times(torch, np, dev, n=N_TIMED):
          * torch.rand((F, 2, 10, H, W), generator=g, device=dev) * 5.0).contiguous()
     offsets = torch.from_numpy((np.arange(F) / FPS * 1e6).astype(np.int32)).to(dev)
     draw = ldati.make_draw(0, 0, dev)
-    main, grid = [], []
-    with record_calls([ldati, driver], "compact_rows", main):
+    main, grid, merges, appends = [], [], [], []
+    with record_calls([ldati, driver], "compact_rows", main), \
+            record_calls([driver], "merge_sorted_rows", merges):
         driver._fetch_chunk_events_fused(v, draw, offsets, F, scfg, FPS, width=W)
     with record_calls([ldati], "compact_rows", grid):
         ldati.sample_rows(v, draw, dataclasses.replace(scfg, use_gen_compact=False))
     grid = [c for c in grid if c[0][0].shape[1] == 2 * H * W]
-    if len(main) != 3 or len(grid) != 1:
-        raise AssertionError(f"expected 3 main-path and 1 grid K2 calls, got {len(main)}, "
-                             f"{len(grid)}")
+    with record_calls([driver], "append_rows", appends):
+        stream = ldati.sample_events(v, draw, dataclasses.replace(scfg, bidirectional=True))
+        driver._fetch_chunk_events(stream, offsets, F, FPS, width=W)
+    if len(main) != 3 or len(grid) != 1 or len(merges) != 2 or len(appends) != 1:
+        raise AssertionError(f"expected 3 main-path and 1 grid K2 calls, 2 K3 and 1 K5 calls, "
+                             f"got {len(main)}, {len(grid)}, {len(merges)}, {len(appends)}")
     kw1 = dict(fps=FPS, mepv=scfg.max_events_per_voxel, vox_bits=ldati.vox_bits_of(2, H, W),
                cap_bin=scfg.cap_bin)
     times = {}
@@ -1814,18 +1848,31 @@ def stage2_times(torch, np, dev, n=N_TIMED):
         times[label] = time_one(fn, torch, n)
         times[f"{label} device"] = graph_ms(fn, torch)
 
+    def shape(a, k, cap):
+        r, width = a[0].shape
+        return f"{r}x{width}->{cap}{'+pay' if len(a) > 1 and a[1] else ''}"
+
     for strategy in ("slope", "none"):
         add(f"gen_compact[{strategy}]", lambda: gen.gen_compact(v, strategy=strategy, **kw1))
     labels = []
     for i, (a, k) in enumerate(main + grid):
-        r, width = a[0].shape
-        label = (f"compact_rows[{'main ' + str(i) if i < 3 else 'grid'}: {r}x{width}->"
-                 f"{k['cap']}{'+pay' if len(a) > 1 and a[1] else ''}]")
+        label = (f"compact_rows[{'main ' + str(i) if i < 3 else 'grid'}: "
+                 f"{shape(a, k, k['cap'])}]")
         add(label, lambda: compact.compact_rows(*a, **k))
         labels.append(label)
+    merge_labels = []
+    for i, (a, k) in enumerate(merges):
+        label = f"merge_sorted_rows[main {i}: {shape(a, k, k['cap'])}]"
+        add(label, lambda: compact.merge_sorted_rows(*a, **k))
+        merge_labels.append(label)
+    for a, k in appends:
+        add(f"append_rows[stream: {shape(a, k, k['cap'])}]",
+            lambda: compact.append_rows(*a, **k))
     for suffix in ("", " device"):
         times[f"compact_rows[main path]{suffix}"] = sum(times[x + suffix] for x in labels[:3])
-    del v, main, grid
+        times[f"merge_sorted_rows[main path]{suffix}"] = sum(times[x + suffix]
+                                                             for x in merge_labels)
+    del v, main, grid, merges, appends, stream
     torch.cuda.empty_cache()
     return times
 

@@ -1,9 +1,10 @@
 """The port's CUDA kernels (K1 gen_compact, K2 compact_rows, K3
 merge_sorted_rows, K4 gen_pack, K5 append_rows) against their plain-torch
 twins, at the shapes of the stage-2 paths (24-frame chunks of 260x346
-voxels) and at the edges of K1's and K2's look-back core (ragged lengths,
-views off 16 bytes, long look-backs, caps on tile boundaries, empty and
-full rows, replays in a CUDA graph), the research stage-1 convs (K9 conv3d_3x3x3, K10
+voxels) and at the edges of the look-back core of K1, K2, K3 and K5
+(ragged lengths, views off 16 bytes, long look-backs, caps on tile
+boundaries and inside tiles, empty and full rows, replays in a CUDA
+graph, 200 rounds of the main-path calls in a child process), the research stage-1 convs (K9 conv3d_3x3x3, K10
 fused_up_concat_conv) against theirs: f32 outputs within 1e-5 of the twin
 relative to its largest value (sums in another order), bf16 outputs within
 8e-3 (one bf16 ulp where an f32 sum straddles a rounding boundary), and
@@ -209,7 +210,7 @@ def test_gen_compact_core_paths_equal_twin_on_card(shape, cap_bin, chunk, view, 
     _assert_equal(gen.gen_compact(v, **kw), gen.gen_compact_torch(v, **kw))
 
 
-STRESS_ITERS = 200        # each: K1 'slope' and K2's three main-path calls
+STRESS_ITERS = 200        # rounds of stress_lookback's or stress_merge's calls
 STRESS_TIMEOUT_S = 300    # the child's start, its inputs and twins, and the calls
 
 
@@ -252,24 +253,91 @@ def stress_lookback(iters):
     return int(bad)
 
 
-@pytest.mark.requires_cuda
-def test_compaction_back_to_back_calls_never_hang_on_card():
-    # an ordering fault of the look-back (a tile that waits for a flag no
-    # store ever leaves) hangs the card only now and then; the calls run
-    # in a child process, so a hang ends at the timeout as a failure here
+def _stress_in_child(fn, what):
+    """Runs tests.test_torch_kernels.<fn>(STRESS_ITERS) in a child process,
+    so a hang ends at the timeout as a failure here."""
     _cuda_or_skip()
     _cuda.lib()                                   # build before the child starts
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = ("from tests.test_torch_kernels import stress_lookback; "
-            f"print('differing outputs', stress_lookback({STRESS_ITERS}))")
+    code = (f"from tests.test_torch_kernels import {fn}; "
+            f"print('differing outputs', {fn}({STRESS_ITERS}))")
     try:
         proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                               text=True, timeout=STRESS_TIMEOUT_S)
     except subprocess.TimeoutExpired:
-        pytest.fail(f"{STRESS_ITERS} rounds of K1 and K2 calls did not end within "
+        pytest.fail(f"{STRESS_ITERS} rounds of {what} calls did not end within "
                     f"{STRESS_TIMEOUT_S} s: a look-back wait never ended")
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().splitlines()[-1] == "differing outputs 0", proc.stdout
+
+
+@pytest.mark.requires_cuda
+def test_compaction_back_to_back_calls_never_hang_on_card():
+    # an ordering fault of the look-back (a tile that waits for a flag no
+    # store ever leaves) hangs the card only now and then
+    _stress_in_child("stress_lookback", "K1 and K2")
+
+
+def _prefix_rows(seed, lengths, w):
+    """Rows of width w whose first lengths[i] keys are valid (sorted) and
+    the rest INVALID, the precondition of K3 and K5, and a payload."""
+    rng = np.random.RandomState(seed)
+    lengths = np.asarray(lengths)
+    keys = np.where(np.arange(w)[None, :] < lengths[:, None],
+                    np.sort(rng.randint(0, 1 << 30, (len(lengths), w)), axis=1),
+                    INVALID).astype(np.int32)
+    pay = rng.randint(-2 ** 31, 2 ** 31 - 1, keys.shape).astype(np.int32)
+    return keys, pay
+
+
+def _merge_calls(dev, seed):
+    """K3's two main-path calls of the center CLI ((216, 16384) -> one
+    3,538,944-slot row, the (216, 4096) side list -> 120,832 slots), K3's
+    per-frame merge of the EventStream route ((216, 16384) in 24 groups of
+    9 -> 147,456 with a payload) and K5's flatten ((24, 147456) -> one row
+    with a payload), on prefix rows of random lengths (some empty, some
+    full): [(run, twin's output)]."""
+    rng = np.random.RandomState(seed)
+    calls = []
+    for w, nb, cap, with_pay in [(16384, 216, 216 * 16384, False), (4096, 216, 120832, False),
+                                 (16384, 9, 147456, True)]:
+        lengths = rng.randint(0, w + 1, 216)
+        lengths[::17], lengths[5::23] = 0, w
+        keys, pay = _prefix_rows(seed + w, lengths, w)
+        k = torch.from_numpy(keys).to(dev)
+        pays = [torch.from_numpy(pay).to(dev)] if with_pay else []
+        calls.append((lambda k=k, pays=pays, nb=nb, cap=cap: compact.merge_sorted_rows(
+            k, pays, nb=nb, cap=cap), compact.merge_sorted_rows_torch(k, pays, nb=nb, cap=cap)))
+    lengths = rng.randint(0, 147457, 24)
+    lengths[3], lengths[7] = 0, 147456
+    keys, pay = _prefix_rows(seed + 1, lengths, 147456)
+    k, p = torch.from_numpy(keys).to(dev), torch.from_numpy(pay).to(dev)
+    calls.append((lambda: compact.append_rows(k, [p], cap=24 * 147456, chunk=8192),
+                  compact.append_rows_torch(k, [p], cap=24 * 147456, chunk=8192)))
+    return calls
+
+
+def stress_merge(iters):
+    """Back-to-back K3 and K5 calls at the main-path shapes (_merge_calls),
+    with no host sync between them; every output of every call is held
+    against its twin's on the card. Returns the number of outputs that
+    differ (synced once, at the end)."""
+    dev = _cuda_or_skip()
+    _cuda.lib()
+    calls = _merge_calls(dev, 40)
+    for run, ref in calls:                        # shapes and dtypes, once
+        _assert_equal(run(), ref)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(iters):
+        for run, ref in calls:
+            for x, y in zip(_flat(run()), _flat(ref)):
+                bad += (x != y).any()
+    return int(bad)
+
+
+@pytest.mark.requires_cuda
+def test_merge_back_to_back_calls_never_hang_on_card():
+    _stress_in_child("stress_merge", "K3 and K5")
 
 
 @pytest.mark.requires_cuda
@@ -346,6 +414,101 @@ def test_append_rows_equals_twin_on_card(cap, density):
                   compact.append_rows_torch(k, [p], cap=cap, chunk=8192))
     _assert_equal(compact.append_rows(k, (), cap=cap, chunk=8192),
                   compact.append_rows_torch(k, (), cap=cap, chunk=8192))
+
+
+@pytest.mark.requires_cuda
+def test_merge_sorted_rows_groups_equal_twin_on_card():
+    # the per-frame merge of the EventStream route (ldati.py:546): 24 groups
+    # of 9 rows of 16,384 -> 147,456 slots each, with a payload
+    dev = _cuda_or_skip()
+    lengths = np.random.RandomState(12).randint(0, 16385, 216)
+    lengths[::10], lengths[4::13] = 0, 16384
+    keys, pay = _prefix_rows(12, lengths, 16384)
+    k, p = torch.from_numpy(keys).to(dev), torch.from_numpy(pay).to(dev)
+    for pays in ([p], ()):
+        _assert_equal(compact.merge_sorted_rows(k, pays, nb=9, cap=147456),
+                      compact.merge_sorted_rows_torch(k, pays, nb=9, cap=147456))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("lengths,w,nb,cap", [
+    # empty and full rows: a full row's next tile is the next row's first,
+    # a row of exactly one tile leaves its second tile's probe on INVALID
+    ([0, 8192, 8192, 1, 8191, 0, 4096, 4097, 0, 0, 0, 8192], 8192, 3, 3 * 8192),
+    # the cap binds mid-row on a tile boundary (9984 + 8192), and mid-tile
+    ([9984, 16384, 0, 300, 16384, 16384], 16384, 3, 18176),
+    ([9984, 16384, 0, 300, 16384, 16384], 16384, 3, 14976),
+    # W not a multiple of the tile, caps below one fill chunk
+    ([4224, 0, 4100, 17, 4224, 4223], 4224, 2, 4352),
+    ([4224, 4224, 4224, 4224], 4224, 4, 128),
+])
+def test_merge_sorted_rows_edges_equal_twin_on_card(lengths, w, nb, cap):
+    dev = _cuda_or_skip()
+    keys, pay = _prefix_rows(13, lengths, w)
+    k, p = torch.from_numpy(keys).to(dev), torch.from_numpy(pay).to(dev)
+    for pays in ([p], ()):
+        _assert_equal(compact.merge_sorted_rows(k, pays, nb=nb, cap=cap),
+                      compact.merge_sorted_rows_torch(k, pays, nb=nb, cap=cap))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("w,cap,chunk,view", [
+    (5001, 16384, 8192, False),    # W % 4 != 0: key-by-key staging
+    (8192, 11000, 128, True),      # keys off 16 bytes, the cap binds mid-tile
+    (4096, 8192, 8192, False),     # the cap binds on a tile boundary
+    (12288, 64, 128, False),       # a cap below one fill chunk
+])
+def test_append_rows_edges_equal_twin_on_card(w, cap, chunk, view):
+    dev = _cuda_or_skip()
+    lengths = np.random.RandomState(w).randint(0, w + 1, 6)
+    lengths[1], lengths[4] = 0, w
+    if w == 4096:
+        lengths[:] = [w, w, 0, w, w, 5]
+    keys, pay = _prefix_rows(14, lengths, w)
+    k, p = _on_card(keys, dev, view), _on_card(pay, dev, view)
+    for pays in ([p], ()):
+        _assert_equal(compact.append_rows(k, pays, cap=cap, chunk=chunk),
+                      compact.append_rows_torch(k, pays, cap=cap, chunk=chunk))
+
+
+@pytest.mark.requires_cuda
+def test_merge_graph_replays_reset_the_lookback_on_card():
+    # a K3 call (3 groups, with a payload) and a K5 call captured in a CUDA
+    # graph, replayed over new row lengths: the memset of each call's
+    # scratch replays with it
+    dev = _cuda_or_skip()
+    k3 = torch.empty((12, 8192), dtype=torch.int32, device=dev)
+    p3 = torch.empty_like(k3)
+    k5 = torch.empty((6, 5001), dtype=torch.int32, device=dev)
+    p5 = torch.empty_like(k5)
+
+    def load(seed):
+        rng = np.random.RandomState(seed)
+        for k, p in ((k3, p3), (k5, p5)):
+            keys, pay = _prefix_rows(seed, rng.randint(0, k.shape[1] + 1, k.shape[0]),
+                                     k.shape[1])
+            k.copy_(torch.from_numpy(keys))
+            p.copy_(torch.from_numpy(pay))
+
+    def run():
+        return (compact.merge_sorted_rows(k3, [p3], nb=4, cap=20480),
+                compact.append_rows(k5, [p5], cap=20000, chunk=128))
+
+    load(30)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = run()
+    for seed in (31, 32, 33):
+        load(seed)
+        g.replay()
+        torch.cuda.synchronize()
+        _assert_equal(out[0], compact.merge_sorted_rows_torch(k3, [p3], nb=4, cap=20480))
+        _assert_equal(out[1], compact.append_rows_torch(k5, [p5], cap=20000, chunk=128))
 
 
 CONV_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}

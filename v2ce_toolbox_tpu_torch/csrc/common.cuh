@@ -1,9 +1,7 @@
-// Shared device helpers of the v2ce kernels: the INVALID marker, block-wide
-// scans built from warp shuffles, block sums of a range and the count of a
-// row's valid keys (K3 and K5, merge_rows.cu), and the LDATI generation
-// math that K1 (gen_compact.cu) and K4 (gen_pack.cu) share, so both run the
-// identical f32 op sequence. The compaction core of K1 and K2 is
-// compact_core.cuh.
+// Shared device helpers of the v2ce kernels: the INVALID marker, lane and
+// warp ids, and the LDATI generation math that K1 (gen_compact.cu) and K4
+// (gen_pack.cu) share, so both run the identical f32 op sequence. The
+// compaction core of K1, K2, K3 and K5 is compact_core.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,55 +12,6 @@ namespace v2ce {
 
 __device__ __forceinline__ unsigned lane_id() { return threadIdx.x & 31u; }
 __device__ __forceinline__ unsigned warp_id() { return threadIdx.x >> 5; }
-
-// Exclusive prefix sum of `value` over the block, in thread order.
-__device__ __forceinline__ int block_exclusive_sum(int value, int* scratch, int* total) {
-  const unsigned lane = lane_id(), warp = warp_id();
-  const unsigned nwarps = (blockDim.x + 31) >> 5;
-  int v = value;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, v, d);
-    if (lane >= (unsigned)d) v += t;
-  }
-  if (lane == 31) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nwarps ? scratch[lane] : 0;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= (unsigned)d) w += t;
-    }
-    scratch[lane] = w;
-  }
-  __syncthreads();
-  const int warp_off = warp ? scratch[warp - 1] : 0;
-  *total = scratch[nwarps - 1];
-  __syncthreads();
-  return warp_off + v - value;
-}
-
-// Block-wide sum; every thread receives it.
-__device__ __forceinline__ int block_sum(int value, int* scratch) {
-  int total;
-  block_exclusive_sum(value, scratch, &total);
-  return total;
-}
-
-// Sum of v[first .. last) over the block; every thread receives it.
-__device__ __forceinline__ int range_sum(const int* __restrict__ v, long first, long last,
-                                         int* scratch) {
-  int c = 0;
-  for (long i = first + threadIdx.x; i < last; i += blockDim.x) c += v[i];
-  return block_sum(c, scratch);
-}
-
-// Count of the non-INVALID keys of one row; every thread receives it.
-__device__ __forceinline__ int count_valid(const int* __restrict__ row, long width,
-                                           int* scratch) {
-  int c = 0;
-  for (long i = threadIdx.x; i < width; i += blockDim.x) c += row[i] != V2CE_INVALID;
-  return block_sum(c, scratch);
-}
 
 // ---------------------------------------------------------------------------
 // LDATI generation (v2ce_toolbox_tpu/ops/gen_pallas.py:_gen_kernel and

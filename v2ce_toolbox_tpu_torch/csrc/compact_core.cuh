@@ -1,5 +1,5 @@
 // Single-pass stable compaction with decoupled look-back: the core that K1
-// (gen_compact.cu) and K2 (compact_rows.cu) share.
+// (gen_compact.cu), K2 (compact_rows.cu) and K3/K5 (merge_rows.cu) share.
 //
 // A launch is one 1-D grid of equal blocks. Each block first takes a
 // ticket (an atomicAdd on a counter), and the ticket, not blockIdx, names
@@ -31,8 +31,8 @@
 // each launch: a CUDA graph that replays the launch replays the memset, so
 // a replay never reads the previous one's flags. The buffer's layout (how
 // many tiles, fill tiles and words) is planned in Python (ops/compact.plan,
-// ops/gen.plan) and passed to the C entry, which checks it against the
-// kernel's constants before it touches the buffer.
+// ops/compact.merge_plan, ops/gen.plan) and passed to the C entry, which
+// checks it against the kernel's constants before it touches the buffer.
 #pragma once
 
 #include "common.cuh"

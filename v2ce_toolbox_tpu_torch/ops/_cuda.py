@@ -58,12 +58,12 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "v2ce_compact_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
     "v2ce_compact_rows_window": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
-    "v2ce_merge_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "v2ce_merge_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _P],
     "v2ce_gen_compact": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _L, _P],
     "v2ce_gen_pack": [_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    "v2ce_append_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "v2ce_append_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
     "v2ce_conv3d": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "v2ce_decoder_conv": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "v2ce_correlation": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _L, _P, _P],

@@ -6,7 +6,10 @@ counterparts of `v2ce_toolbox_tpu/ops/compact_pallas.py`. On a CPU tensor
 they run their plain-torch twins; on a CUDA tensor they launch the
 hand-written kernels of `csrc/compact_rows.cu` and `csrc/merge_rows.cu`
 (K5 is K3's merge of all R rows into one, with its own entry and launch
-count), or raise. There is no fallback from the kernels to the twins.
+count), or raise. There is no fallback from the kernels to the twins. All
+of them run on the look-back core of `csrc/compact_core.cuh`: one kernel
+after the memset of its scratch a call, planned here (`plan`,
+`merge_plan`).
 
 `compact_rows` keeps the JAX package's two algorithms and its default,
 algo="window" (K2w, `_compact_kernel`) beside algo="place" (K2,
@@ -27,6 +30,8 @@ from v2ce_toolbox_tpu_torch.ops import _cuda
 INVALID = 2 ** 31 - 1          # int32 max marks an empty slot
 _TILE = 4096                   # keys per compute tile of csrc/compact_rows.cu
 _FILL = 16384                  # output slots per tail chunk
+_MERGE_TILE = 4096             # keys per compute tile of csrc/merge_rows.cu
+_MERGE_FILL = 4096             # output slots per tail chunk of csrc/merge_rows.cu
 
 # launches of each kernel since the last reset (the wrappers add one per
 # call that reaches the card)
@@ -182,15 +187,70 @@ def merge_sorted_rows_torch(keys: torch.Tensor,
     return out_k, tuple(out_p), torch.clamp(total, max=cap), total
 
 
+def merge_plan(rows: int, width: int, capp: int) -> Tuple[int, int, int]:
+    """K3's and K5's launch plan (csrc/merge_rows.cu, which checks it):
+    (compute tiles a row, fill tiles an output row, 64-bit scratch words).
+    A row of `width` keys is ceil(width / 4096) compute tiles; a capp-wide
+    output row's tail is written by fill tiles, one a chunk of 4,096 slots
+    (at least one, which also writes kept and total); the scratch is the
+    ticket and one status word per compute tile."""
+    tiles = -(-width // _MERGE_TILE)
+    return tiles, max(1, -(-capp // _MERGE_FILL)), 1 + rows * tiles
+
+
+def _merge(name: str, keys: torch.Tensor, payloads: Sequence[torch.Tensor], nb: int,
+           groups: int, capp: int) -> Out:
+    """Launches K3 (name "merge_sorted_rows") or K5 ("append_rows"): one
+    kernel after the memset of its scratch."""
+    payloads = tuple(payloads)
+    if len(payloads) > 1:
+        raise ValueError(f"the {name} kernel routes at most one payload")
+    r, wd = keys.shape
+    check_cuda_int32(f"{name} keys", keys, (r, wd))
+    for p in payloads:
+        check_cuda_int32(f"{name} payload", p, (r, wd))
+    tiles, fills, words = merge_plan(r, wd, capp)
+    if (nb * wd >= 1 << 31 or capp > (1 << 31) - _MERGE_FILL
+            or r * tiles + groups * fills >= 1 << 31):
+        raise ValueError(f"{name}: ({r}, {wd}) in groups of {nb} -> cap {capp} exceeds the "
+                         "kernel's limits")
+    dev = keys.device
+    out_k = torch.empty((groups, capp), dtype=torch.int32, device=dev)
+    out_p = tuple(torch.empty_like(out_k) for _ in payloads)
+    # one allocation: the kernel's 64-bit scratch words (zeroed by the C
+    # entry), then kept and total
+    buf = torch.empty((2 * words + 2 * groups,), dtype=torch.int32, device=dev)
+    ptr = buf.data_ptr()
+    args = (keys.data_ptr(), payloads[0].data_ptr() if payloads else None,
+            out_k.data_ptr(), out_p[0].data_ptr() if out_p else None,
+            ptr, ptr + 8 * words, ptr + 8 * words + 4 * groups, r, wd)
+    with torch.cuda.device(dev):
+        if name == "merge_sorted_rows":
+            err = _cuda.lib().v2ce_merge_rows(*args, nb, capp, tiles, fills, words,
+                                              _cuda.stream_of(keys))
+        else:
+            err = _cuda.lib().v2ce_append_rows(*args, capp, tiles, fills, words,
+                                               _cuda.stream_of(keys))
+    _cuda.check(err, name)
+    launches[name] += 1
+    return out_k, out_p, buf[2 * words:2 * words + groups], buf[2 * words + groups:]
+
+
 def merge_sorted_rows(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
                       *, nb: int, cap: int) -> Out:
     """Concatenate the valid prefixes of nb consecutive rows into one row
     (counterpart of compact_pallas.merge_sorted_rows, `compact_pallas.py:556`).
-    A row's length is its count of non-INVALID keys, which the callers keep
-    as a prefix.
+
+    Precondition, the JAX kernel's: each row's valid (non-INVALID) keys
+    form a prefix of it (a sorted row with its INVALID tail). Every caller
+    keeps it. On such rows the kernel equals `merge_sorted_rows_torch`; on
+    others the two differ (the kernel reads only the 1,024-key steps whose
+    first key is valid). The kernel's 1-D ticket grid holds R *
+    ceil(W / 4096) compute and R / nb * ceil(cap / 4096) fill tiles, fewer
+    than 2**31.
 
     Args:
-      keys: (R, W) int32, R % nb == 0, W % 128 == 0.
+      keys: (R, W) int32, R % nb == 0, W % 128 == 0, nb * W < 2**31.
       payloads: zero or one int32 arrays of the same shape.
       cap: output row capacity (a multiple of 128).
     Returns:
@@ -198,34 +258,12 @@ def merge_sorted_rows(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
       min(total, cap), INVALID keys / zero payloads past it.
     """
     r, wd = keys.shape
-    if r % nb or wd % 128 or cap % 128:
+    if nb <= 0 or r % nb or wd % 128 or cap % 128:
         raise ValueError(f"merge_sorted_rows needs R % nb == 0 and W, cap "
                          f"multiples of 128; got R={r} nb={nb} W={wd} cap={cap}")
     if keys.device.type == "cpu":
         return merge_sorted_rows_torch(keys, payloads, nb=nb, cap=cap)
-    payloads = tuple(payloads)
-    if len(payloads) > 1:
-        raise ValueError("the merge kernel routes at most one payload")
-    check_cuda_int32("merge_sorted_rows keys", keys, (r, wd))
-    for p in payloads:
-        check_cuda_int32("merge_sorted_rows payload", p, (r, wd))
-    g = r // nb
-    if r > 65535 or g > 65535:
-        raise ValueError(f"merge_sorted_rows: {r} rows exceed the grid limit")
-    out_k = torch.empty((g, cap), dtype=torch.int32, device=keys.device)
-    out_p = tuple(torch.empty_like(out_k) for _ in payloads)
-    lengths = torch.empty((r,), dtype=torch.int32, device=keys.device)
-    kept = torch.empty((g,), dtype=torch.int32, device=keys.device)
-    total = torch.empty_like(kept)
-    with torch.cuda.device(keys.device):
-        err = _cuda.lib().v2ce_merge_rows(
-            keys.data_ptr(), payloads[0].data_ptr() if payloads else None,
-            out_k.data_ptr(), out_p[0].data_ptr() if out_p else None,
-            lengths.data_ptr(), kept.data_ptr(), total.data_ptr(),
-            r, wd, nb, cap, _cuda.stream_of(keys))
-    _cuda.check(err, "merge_sorted_rows")
-    launches["merge_sorted_rows"] += 1
-    return out_k, out_p, kept, total
+    return _merge("merge_sorted_rows", keys, payloads, nb, r // nb, cap)
 
 
 # ---------------------------------------------------------------------------
@@ -242,11 +280,16 @@ def append_rows_torch(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
 def append_rows(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
                 *, cap: int, chunk: int = 8192) -> Out:
     """Collapse R prefix-packed rows into one front-packed row (counterpart
-    of compact_pallas.append_rows, `compact_pallas.py:632`): the valid keys
-    of each row must form a prefix, as in per-frame event buffers.
+    of compact_pallas.append_rows, `compact_pallas.py:632`).
+
+    Precondition, the JAX kernel's: each row's valid (non-INVALID) keys
+    form a prefix of it, as in per-frame event buffers. On such rows the
+    kernel equals `append_rows_torch`. The kernel's 1-D ticket grid holds R
+    * ceil(W / 4096) compute and ceil(cap' / 4096) fill tiles, fewer than
+    2**31.
 
     Args:
-      keys: (R, W) int32, any W; INVALID marks empty slots.
+      keys: (R, W) int32, any W, R * W < 2**31; INVALID marks empty slots.
       payloads: zero or one int32 arrays of the same shape.
       cap: output capacity, rounded up to a multiple of `chunk` (cap'): the
         TPU kernel drops whole chunks, which keeps exactly the first cap'
@@ -259,28 +302,4 @@ def append_rows(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
         raise ValueError(f"chunk={chunk} must be a multiple of 128")
     if keys.device.type == "cpu":
         return append_rows_torch(keys, payloads, cap=cap, chunk=chunk)
-    payloads = tuple(payloads)
-    if len(payloads) > 1:
-        raise ValueError("the append_rows kernel routes at most one payload")
-    r, wd = keys.shape
-    check_cuda_int32("append_rows keys", keys, (r, wd))
-    for p in payloads:
-        check_cuda_int32("append_rows payload", p, (r, wd))
-    capp = _round_up(cap, chunk)
-    if r > 65535 or r * wd >= 1 << 31 or capp >= 1 << 31:
-        raise ValueError(f"append_rows: ({r}, {wd}) -> {capp} exceeds the kernel's limits")
-    dev = keys.device
-    out_k = torch.empty((1, capp), dtype=torch.int32, device=dev)
-    out_p = tuple(torch.empty_like(out_k) for _ in payloads)
-    lengths = torch.empty((r,), dtype=torch.int32, device=dev)
-    kept = torch.empty((1,), dtype=torch.int32, device=dev)
-    total = torch.empty_like(kept)
-    with torch.cuda.device(dev):
-        err = _cuda.lib().v2ce_append_rows(
-            keys.data_ptr(), payloads[0].data_ptr() if payloads else None,
-            out_k.data_ptr(), out_p[0].data_ptr() if out_p else None,
-            lengths.data_ptr(), kept.data_ptr(), total.data_ptr(),
-            r, wd, capp, _cuda.stream_of(keys))
-    _cuda.check(err, "append_rows")
-    launches["append_rows"] += 1
-    return out_k, out_p, kept, total
+    return _merge("append_rows", keys, payloads, keys.shape[0], 1, _round_up(cap, chunk))
