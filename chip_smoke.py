@@ -124,7 +124,22 @@ Phases, any failure exits non-zero before the result lines:
      rise); K13's device time must
      rise from k=64 to k=256 at a rate under the card's int32 issue rate; (b)
      the probe CLI with all eight probes, counted: every probe kernel must
-     launch, and only `wino_ablate [noinv]` may print FAILED.
+     launch, and only `wino_ablate [noinv]` may print FAILED;
+ 13. the v2 sampler core (geometries whose voxel ids the packed key cannot
+     hold), counted, K5 and K2 in its flatten: (a) `driver.chunk_events`
+     at 10 fps on 4 frames of the dense voxels for 'slope', 'none',
+     'random' and 'avg', the card against the CPU plain path byte for
+     byte; then every K5 and K2 call of the 24-frame chunk (12,582,912
+     slots) against its plain twin, identical, and each mode's stage-2
+     ms and peak memory on that chunk; (b) the ablation samplers (`ops/samplers`: baseline 'random'
+     and 'even', pure slope) on 4 frames, card against CPU, byte for
+     byte; (c) the center CLI at --fps 10 on the 33-frame clip, and
+     --streaming with as many events; (d) the pano CLI on a 33-frame
+     260x1024 clip (3 strips, x past 1000), batch and --streaming with
+     as many events; (e) V2cePipeline at width 1025 refused (ValueError,
+     the wire record's 10-bit x) before the model is built; (f) the port's
+     `tools/stage2_eval` over all seven samplers on 2 frames of phase
+     11's packets.
 The line before the last is a JSON object of per-kernel results (its
 `launches` is the count of the kernel's own path, KERNEL_PATH, and
 `launches_by_path` every counted path's count; K9's and K10's times are
@@ -174,6 +189,11 @@ CONV_PER_WINDOW = {"conv3d_3x3x3": 14, "fused_up_concat_conv": 2}
 FPS, F, H, W = 30, 24, 260, 346            # the stage-2 chunk of the main path
 PANO_W = 600
 DEVICE = "cuda"
+# the v2 sampler core: a 10 fps bin at 260x346, and a 260x1024 pano stream
+# at 30 fps, whose voxel ids the packed key cannot hold
+V2_FPS, V2_PANO_W = 10, 1024
+V2_MODES = ("slope", "none", "random", "avg")
+V2_PATH = ("append_rows", "compact_rows")
 # the data path: 16-frame packets of a 49-frame recording, one pair-flow
 # call of 16 pairs a direction; K8 against its twin relative to the twin's
 # largest output (f32 sums in another order), the card's FastFlowNet
@@ -832,7 +852,7 @@ def make_clip(path, n, h, w):
     video.release()
 
 
-def check_npz(result, np, w, what, monotone=True):
+def check_npz(result, np, w, what, monotone=True, fps=FPS):
     """The npz of a CLI run: EVENT_DTYPE records inside the 260 x w frame of
     the 32 voxel frames, time-sorted, and as many as the run reports.
     'random' (not monotone) draws raw U[0, 1) s offsets past each bin
@@ -842,7 +862,7 @@ def check_npz(result, np, w, what, monotone=True):
     ev = np.load(result["event_stream_path"])["event_stream"]
     if ev.dtype != EVENT_DTYPE:
         raise AssertionError(f"{what}: npz dtype {ev.dtype} != {EVENT_DTYPE}")
-    t_end = 32 / FPS * 1e6 + (0 if monotone else 1e6 + 1e6 / FPS / 9 + 2)
+    t_end = 32 / fps * 1e6 + (0 if monotone else 1e6 + 1e6 / fps / 9 + 2)
     if not (len(ev) == result["num_events"] > 0
             and ev["x"].min() >= 0 and ev["x"].max() < w
             and ev["y"].min() >= 0 and ev["y"].max() < H
@@ -952,6 +972,173 @@ def modes_phase(torch, np, counted, dense, smi):
         r = sorted(runs, key=lambda r: r["timings"]["stage2_s"])[1]
         log(f"[mode] {mode}: 4-frame chunk card == CPU plain ({len(card)} events, CPU "
             f"{cpu_s:.1f} s); {how}, median of 3: {cli_line(r)} [{smi}]")
+
+
+def peak_gib(torch, fn):
+    """(fn(), the allocator's peak in GiB while it ran)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def v2_phase(torch, np, counted, dense, smi):
+    """Phase 13: the v2 sampler core, which takes the geometries whose voxel
+    ids the packed key cannot hold: (a) `driver.chunk_events` at 10 fps on
+    4 frames of the dense voxels for V2_MODES, counted (K5 and K2 in the
+    flatten), the card against the CPU plain path byte for byte; then on
+    the 24-frame chunk every K5 and K2 call (12,582,912 slots) held
+    against its plain twin exactly, and the stage-2 ms and peak memory;
+    (b) the ablation samplers (baseline 'random' and 'even', pure slope)
+    on 4 frames, card against CPU; (c) the center CLI at --fps 10, counted, and --streaming
+    with as many events; (d) the pano CLI on a 260x1024 clip, x past 1000,
+    batch and --streaming; (e) V2cePipeline at width 1025 refused before
+    stage 1 (the wire record); (f) the port's stage2_eval on phase 11's
+    packets. Returns {kernel: max_abs_err} of (a)'s 24-frame calls."""
+    from v2ce_toolbox_tpu_torch import cli
+    from v2ce_toolbox_tpu_torch.config import PipelineConfig, SamplerConfig
+    from v2ce_toolbox_tpu_torch.eval.stage2_metrics import SAMPLERS
+    from v2ce_toolbox_tpu_torch.events import to_recarrays
+    from v2ce_toolbox_tpu_torch.models import V2ce3d
+    from v2ce_toolbox_tpu_torch.ops import compact, ldati, samplers
+    from v2ce_toolbox_tpu_torch.pipeline import driver
+    from v2ce_toolbox_tpu_torch.tools import stage2_eval
+
+    if ldati.supports_rows(2, H, W, fps=V2_FPS) or ldati.supports_rows(2, H, V2_PANO_W, fps=FPS):
+        raise AssertionError("the v2 geometries fit the packed key: the phase misses the core")
+    v = dense[0]
+    v4 = v[:4].contiguous()
+    draw = ldati.make_draw(2, 0, v.device)
+
+    def cpu_draw(j, shape):
+        return draw(j, shape).cpu()
+
+    def offsets(n):
+        return torch.from_numpy((np.arange(n) / V2_FPS * 1e6).astype(np.int32)).to(v.device)
+
+    errs = {name: 0 for name in V2_PATH}
+    for mode in V2_MODES:
+        cfg = dataclasses.replace(SamplerConfig(), **MODES[mode][0])
+        card = counted(f"v2 {mode}", V2_PATH,
+                       lambda: driver.chunk_events(v4, draw, offsets(4), 4, cfg, V2_FPS))
+        t0 = time.time()
+        plain = driver.chunk_events(v4.cpu(), cpu_draw, offsets(4).cpu(), 4, cfg, V2_FPS)
+        cpu_s = time.time() - t0
+        if len(card) == 0 or card.tobytes() != plain.tobytes():
+            raise AssertionError(f"v2 {mode}: the card's stage 2 ({len(card)} events) differs "
+                                 f"from the CPU plain path ({len(plain)})")
+        # the 24-frame chunk, split: the sampler (synchronised), the flatten
+        # alone (K5, deltas, bit packing, K2), and the whole chunk_events
+        # route (sampler, flatten, fetch, host decode)
+        scfg = dataclasses.replace(cfg, fps=V2_FPS)
+        monotone = mode != "random"
+        off = offsets(F)
+        scap = driver._side_cap(F, scfg.event_capacity, int((F + 1) * 1e6 / V2_FPS) + 2,
+                                driver.DELTA_BITS, monotone)
+        calls = {name: [] for name in V2_PATH}
+        with record_calls([driver], "append_rows", calls["append_rows"]), \
+                record_calls([ldati, driver], "compact_rows", calls["compact_rows"]):
+            driver.chunk_events(v, draw, off, F, cfg, V2_FPS)             # warm-up
+        torch.cuda.synchronize()
+        for name, cl in calls.items():
+            if not cl:
+                raise AssertionError(f"v2 {mode}: the {F}-frame chunk made no {name} call")
+            kernel, plain = getattr(compact, name), getattr(compact, name + "_torch")
+            e = max(max_abs_err(kernel(*a, **k), plain(*a, **k)) for a, k in cl)
+            log(f"[v2] {mode}: {name} on the {F}-frame chunk, calls "
+                f"{[(tuple(a[0].shape), k.get('cap')) for a, k in cl]}: max_abs_err {e}")
+            if e != 0:
+                raise AssertionError(f"v2 {mode}: {name} differs from its plain twin: {e}")
+            errs[name] = max(errs[name], e)
+        del calls
+        t0 = time.perf_counter()
+        stream, peak = peak_gib(torch, lambda: ldati.sample_events(v, draw, scfg))
+        t1 = time.perf_counter()
+        peak_gib(torch, lambda: driver._flatten_chunk_stream(stream, off, F, side_cap=scap))
+        t2 = time.perf_counter()
+        del stream
+        ev, peak_all = peak_gib(torch, lambda: driver.chunk_events(v, draw, off, F, cfg,
+                                                                   V2_FPS))
+        t3 = time.perf_counter()
+        log(f"[v2] {mode}: 4-frame chunk card == CPU plain ({len(card)} events, CPU "
+            f"{cpu_s:.1f} s); {F}-frame {H}x{W} chunk at {V2_FPS} fps: {(t3 - t2) * 1e3:.2f} "
+            f"ms, {len(ev)} events, peak {peak_all:.2f} GiB; sampler {(t1 - t0) * 1e3:.2f} "
+            f"ms (peak {peak:.2f} GiB), flatten {(t2 - t1) * 1e3:.2f} ms [{smi}]")
+
+    for name, fn, kw in [("baseline random", samplers.sample_events_baseline,
+                          dict(mode="random")),
+                         ("baseline even", samplers.sample_events_baseline, dict(mode="even")),
+                         ("pure slope", samplers.sample_events_pure_slope, {})]:
+        card, peak = peak_gib(torch, lambda: to_recarrays(fn(v4, draw, **kw)))
+        plain = to_recarrays(fn(v4.cpu(), cpu_draw, **kw))
+        if (sum(len(r) for r in card) == 0
+                or [r.tobytes() for r in card] != [r.tobytes() for r in plain]):
+            raise AssertionError(f"sampler {name}: the card differs from the CPU")
+        log(f"[v2] sampler {name}: 4 frames card == CPU ({sum(len(r) for r in card)} "
+            f"events), peak {peak:.2f} GiB [{smi}]")
+
+    clip = os.path.join(OUT, "clip.mp4")
+    common = ["-o", OUT, "-m", os.path.join(OUT, "absent.pt"), "--device", DEVICE,
+              "--seed", "0", "--height", str(H), "-l", "warning"]
+    argv = ["-i", clip, "--width", str(W), "--fps", str(V2_FPS), *common]
+    res, peak = peak_gib(torch, lambda: counted("center CLI --fps 10", V2_PATH,
+                                                lambda: cli.main(argv)))
+    check_npz(res, np, W, "center --fps 10", fps=V2_FPS)
+    log(f"[v2] center CLI --fps {V2_FPS}: {cli_line(res)}, peak {peak:.2f} GiB [{smi}]")
+    streamed = cli.main(argv + ["--streaming"])
+    check_npz(streamed, np, W, "center --fps 10 --streaming", fps=V2_FPS)
+    log(f"[v2] center CLI --fps {V2_FPS} --streaming: {cli_line(streamed)} [{smi}]")
+    if streamed["num_events"] != res["num_events"]:
+        raise AssertionError(f"--fps 10 --streaming gave {streamed['num_events']} events, "
+                             f"the batch run {res['num_events']}")
+
+    pano_clip = os.path.join(OUT, "pano1024.mp4")
+    make_clip(pano_clip, 33, H, V2_PANO_W)
+    pargv = ["-i", pano_clip, "-t", "pano", "--width", str(W), *common]
+    pano = {}
+    for label, extra in [("pano 1024", []), ("pano 1024 --streaming", ["--streaming"])]:
+        res, peak = peak_gib(torch, lambda: counted(f"{label} CLI", V2_PATH,
+                                                    lambda: cli.main(pargv + extra)))
+        ev = check_npz(res, np, V2_PANO_W, label)
+        if res["voxels_shape"] != (32, H, V2_PANO_W, 20) or int(ev["x"].max()) < V2_PANO_W - 24:
+            raise AssertionError(f"{label}: voxels {res['voxels_shape']}, x up to "
+                                 f"{int(ev['x'].max())}")
+        log(f"[v2] {label} ({H}x{V2_PANO_W}, 3 strips, x up to {int(ev['x'].max())}): "
+            f"{cli_line(res)}, peak {peak:.2f} GiB [{smi}]")
+        pano[label] = res["num_events"]
+    if len(set(pano.values())) != 1:
+        raise AssertionError(f"pano 1024 event totals differ: {pano}")
+
+    built = []
+    real_init = V2ce3d.__init__
+
+    def recording_init(self, *a, **k):
+        built.append(1)
+        real_init(self, *a, **k)
+
+    V2ce3d.__init__ = recording_init
+    try:
+        driver.V2cePipeline(PipelineConfig(height=H, width=1025),
+                            model_path=os.path.join(OUT, "absent.pt"), device=DEVICE)
+        raise AssertionError("V2cePipeline took a 1025 px stream")
+    except ValueError as e:
+        if built:
+            raise AssertionError("the 1025 px stream was refused after stage 1 began")
+        log(f"[v2] V2cePipeline at {H}x1025 refused before stage 1: {e}")
+    finally:
+        V2ce3d.__init__ = real_init
+
+    pkt_dir = os.path.join(OUT, "packets")
+    t0 = time.time()
+    table = stage2_eval.main(["--data_dir", pkt_dir, "--max_files", "1",
+                              "--max_frames_per_file", "2", "--device", DEVICE,
+                              "--samplers", *SAMPLERS])
+    rows = table.splitlines()[1:]
+    if len(rows) != len(SAMPLERS) or not all(float(r.split(",")[3]) > 0 for r in rows):
+        raise AssertionError(f"stage2_eval: {table}")
+    log(f"[v2] stage2_eval on 2 frames of {pkt_dir}: {time.time() - t0:.1f} s [{smi}]")
+    return errs
 
 
 def research_phase(torch, np, counted, smi):
@@ -1654,6 +1841,10 @@ def main():
     # 11. the training-data path, counted
     data_results, errs["correlation"] = data_phase(torch, np, dev, counted, smi)
     results.update(data_results)
+
+    # 13. the v2 sampler core, the ablation samplers and stage2_eval, counted
+    for name, e in v2_phase(torch, np, counted, dense, smi).items():
+        errs[name] = max(errs[name], e)
 
     # 12. the probe harness and its kernels, counted
     probe_results, probe_errs, roofline_rates = probe_phase(torch, np, dev, counted, smi)

@@ -12,6 +12,8 @@ MODULES = [
     "v2ce_toolbox_tpu_torch",
     "v2ce_toolbox_tpu_torch.config",
     "v2ce_toolbox_tpu_torch.events",
+    "v2ce_toolbox_tpu_torch.eval",
+    "v2ce_toolbox_tpu_torch.eval.stage2_metrics",
     "v2ce_toolbox_tpu_torch.cli",
     "v2ce_toolbox_tpu_torch.data",
     "v2ce_toolbox_tpu_torch.data.dummy_data_gen",
@@ -40,6 +42,7 @@ MODULES = [
     "v2ce_toolbox_tpu_torch.ops.gen",
     "v2ce_toolbox_tpu_torch.ops.ldati",
     "v2ce_toolbox_tpu_torch.ops.roofline",
+    "v2ce_toolbox_tpu_torch.ops.samplers",
     "v2ce_toolbox_tpu_torch.pipeline.driver",
     "v2ce_toolbox_tpu_torch.pipeline.infer",
     "v2ce_toolbox_tpu_torch.pipeline.preprocess",
@@ -47,6 +50,7 @@ MODULES = [
     "v2ce_toolbox_tpu_torch.pipeline.windows",
     "v2ce_toolbox_tpu_torch.tools",
     "v2ce_toolbox_tpu_torch.tools.perf_probe",
+    "v2ce_toolbox_tpu_torch.tools.stage2_eval",
     "v2ce_toolbox_tpu_torch.utils.v2e",
     "v2ce_toolbox_tpu_torch.utils.weights",
 ]

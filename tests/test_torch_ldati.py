@@ -73,10 +73,52 @@ def test_production_draws_repeat_per_chunk_and_slot():
 
 @pytest.mark.parametrize("bad", [
     # (sampler settings, height, width): the packed key cannot hold the
-    # voxel ids, which is the JAX package's v2 core (ROADMAP)
+    # voxel ids; these raised until the v2 sampler core was ported
     (dict(), 260, 1009), (dict(additional_events_strategy="random"), 260, 1024),
     (dict(fps=10), 260, 346), (dict(pooling_type="avg", bidirectional=True), 520, 692)])
-def test_uncovered_sampler_modes_raise(bad):
+def test_uncovered_sampler_modes_raise(bad, monkeypatch):
+    # what the v3 core does not cover raises only where the v3 rows are
+    # asked for: check_config accepts these, and sample_events hands them
+    # to the v2 core (stubbed here: tests/test_torch_ldati_v2.py runs it)
     settings, h, w = bad
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ldati.check_config(SamplerConfig(**settings), 2, 10, h, w)
+    cfg = SamplerConfig(**settings)
+    assert not ldati.supports_rows(2, h, w, fps=cfg.fps,
+                                   additional_events_strategy=cfg.additional_events_strategy,
+                                   pooling_type=cfg.pooling_type)
+    ldati.check_config(cfg, 2, 10, h, w)
+    seen = []
+    monkeypatch.setattr(ldati, "_sample_events_v2",
+                        lambda v, draw, c, **kw: seen.append((tuple(v.shape), c, kw)))
+    v = torch.zeros((1, 2, 10, h, w))
+    with pytest.raises(ValueError, match="v3 sampler core"):
+        ldati.sample_events(v, ldati.make_draw(0, 0, "cpu"), cfg, return_rows=True)
+    assert seen == []
+    ldati.sample_events(v, ldati.make_draw(0, 0, "cpu"), cfg)
+    assert seen == [((1, 2, 10, h, w), cfg, dict(t0=0.0, max_multi_voxels=1 << 16))]
+
+
+@pytest.mark.parametrize("geometry", [(513, 346), (260, 1025)])
+def test_wire_record_limits_raise(geometry):
+    # y has 9 bits and x at most 10 in the wire record: the pipeline refuses
+    # such a stream before it builds the model
+    from v2ce_toolbox_tpu_torch.config import PipelineConfig
+    from v2ce_toolbox_tpu_torch.pipeline.driver import V2cePipeline
+
+    h, w = geometry
+    with pytest.raises(ValueError, match="wire record"):
+        V2cePipeline(PipelineConfig(height=h, width=w), device="cpu")
+
+
+def test_relocate_erase_beginning_matches_jax():
+    # tests/test_ldati.py:46: values below 0.001 are zeroed before the ceil
+    from v2ce_toolbox_tpu.ops.ldati import relocate_counts
+
+    rng = np.random.RandomState(9)
+    y = (rng.rand(2, 10, 6, 7) * 0.02).astype(np.float32)
+    assert (y < 0.001).any() and (y >= 0.001).any()
+    ref_c, ref_t = relocate_counts(jnp.asarray(y), erase_beginning=True)
+    got_c, got_t = ldati.relocate_counts(torch.from_numpy(y), erase_beginning=True)
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(ref_c))
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(ref_t))
+    plain_c, _ = ldati.relocate_counts(torch.from_numpy(y))
+    assert not torch.equal(plain_c, got_c)

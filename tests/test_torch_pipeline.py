@@ -81,16 +81,58 @@ def test_run_writes_event_stream(clip, pipeline, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    # the v2 sampler core is not ported, which the JAX package runs where
-    # the packed key cannot hold the voxel ids (a 10 fps bin, or a pano
-    # stream wider than 1008 px at 30 fps)
+    # both raised until the v2 sampler core was ported: a 10 fps bin now
+    # runs end to end (at 1 fps on a narrow model here), and a pano stream
+    # of 768x1032 raises the wire record's ValueError instead
     ["--fps", "10"], ["-t", "pano", "--height", "768"]])
-def test_cli_uncovered_flags_raise(clip, flag, tmp_path):
+def test_cli_uncovered_flags_raise(clip, flag, tmp_path, monkeypatch):
     from v2ce_toolbox_tpu_torch import cli
+    from v2ce_toolbox_tpu_torch.models import V2ce3d
+    from v2ce_toolbox_tpu_torch.ops import ldati
 
-    with pytest.raises(NotImplementedError):
-        cli.main(["-i", clip, "-o", str(tmp_path), "--device", "cpu",
-                  "-m", str(tmp_path / "absent.pt"), *flag])
+    if flag[0] == "-t":
+        # 768 rows break the wire record's 9-bit y (and 1032 columns its
+        # 10-bit x): refused before stage 1
+        def no_stage1(*args, **kwargs):
+            raise AssertionError("stage 1 ran")
+
+        monkeypatch.setattr(V2ce3d, "forward", no_stage1)
+        with pytest.raises(ValueError, match="wire record"):
+            cli.main(["-i", clip, "-o", str(tmp_path), "--device", "cpu",
+                      "-m", str(tmp_path / "absent.pt"), *flag])
+        return
+
+    # a low frame rate end to end through the v2 core, on the narrow model
+    # (the CLI's full-width model is too slow here): at 1 fps the ids of a
+    # 64x160 frame leave the packed key too few bits for a bin's µs
+    import cv2
+
+    from tools.make_test_video import make_frames
+
+    w, fps = 160, 1
+    assert not ldati.supports_rows(2, H, w, fps=fps)
+    path = str(tmp_path / "wide.mp4")
+    video = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 30, (w, H))
+    for f in make_frames(N, H, w):
+        video.write(cv2.cvtColor(f, cv2.COLOR_GRAY2BGR))
+    video.release()
+    pipe = V2cePipeline(PipelineConfig(height=H, width=w, fps=fps, model=ModelConfig(**SMALL),
+                                       write_event_frame_video=False),
+                        model_path=None, device="cpu", seed=1)
+    with torch.no_grad():
+        pipe.model.UNet.pred.conv3d.bias.fill_(0.4)
+    counts = {}
+    for method in ("run", "run_streaming"):
+        result = getattr(pipe, method)(input_video_path=path, out_folder=str(tmp_path / method))
+        ev = np.load(result["event_stream_path"])["event_stream"]
+        assert ev.dtype == EVENT_DTYPE and result["num_events"] == len(ev) > 0
+        assert ev["x"].min() >= 0 and ev["x"].max() < w
+        assert ev["y"].min() >= 0 and ev["y"].max() < H
+        assert set(np.unique(ev["polarity"])) <= {0, 1}
+        assert np.all(np.diff(ev["timestamp"]) >= 0)
+        assert 0 <= ev["timestamp"].min() and ev["timestamp"].max() < (N - 1) / fps * 1e6
+        counts[method] = len(ev)
+    assert counts["run"] == counts["run_streaming"]
 
 
 @pytest.mark.parametrize("flag,infer_type,method", [

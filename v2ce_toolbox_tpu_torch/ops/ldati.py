@@ -22,11 +22,23 @@ rows (`sample_rows`, for the fused wire path) or the per-frame merge
 bin start, too wide for the packed key: it runs in two-word form, with
 the rel-µs word as the single sort key and the voxel id as payload.
 
+Where the packed key cannot hold the voxel ids (`supports_rows`: e.g.
+260x346 at 13 fps or less, or wider than 1008 px at 30 fps), the v2 core
+runs instead (`ldati.py:220-570` and the
+non-v3 tail of `sample_events`): relocation and slope on the grid, then
+per frame one stable sort of every (timestamp, voxel) candidate, slot 0
+of every voxel and slots 1 .. mepv-1 of a pool of `max_multi_voxels`
+multi-event voxels (`compact_frame_events`), into a buffer of width
+event_capacity. It launches no kernel; the EventStream route's flatten
+(K5, K2) follows it in the pipeline.
+
 Uniform draws come from a provider `draw(j, shape) -> Tensor`: j is the
 JAX `fold_in` index (0 for slot 0, j for tier j) and `shape` the JAX
-draw's shape, so tests can feed the JAX draws and compare bytes. In
-production `make_draw` seeds a `torch.Generator` from (run seed, chunk,
-j), so a repeated dispatch draws the same numbers.
+draw's shape, so tests can feed the JAX draws and compare bytes. The v2
+core draws per frame: its shapes are (B, n), and row f is frame f's
+draw (the JAX package splits the chunk key per frame, then folds in j).
+In production `make_draw` seeds a `torch.Generator` from (run seed,
+chunk, j), so a repeated dispatch draws the same numbers.
 
 Float contract: every f32 expression follows the JAX op order, and the
 multiply-adds that XLA contracts into FMA are single-rounding here too:
@@ -34,7 +46,9 @@ the chain timestamp `tend / fps / cb + bin_start`, the intercept
 `1/vs - k * (vs/2)` and the inverse-CDF discriminant `(2k) * u + b*b`.
 `fma32` computes them with a single rounding on any device. The pooling
 sums are nine shifted adds of integer counts (times powers of two for
-'weighted'): exact in f32, so their order cannot matter.
+'weighted'): exact in f32, so their order cannot matter. In the v2 core
+with the 'none' strategy XLA:CPU contracts the other product of the
+chain timestamp, `bin * voxel_step` (see `_sample_events_v2`).
 """
 
 from __future__ import annotations
@@ -89,8 +103,8 @@ def vox_bits_of(p: int, h: int, w: int) -> int:
 # Relocation and slope (ldati.py:73, :150, :177)
 # ---------------------------------------------------------------------------
 
-def relocate_counts(y: torch.Tensor, *, bidirectional: bool = False
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def relocate_counts(y: torch.Tensor, *, bidirectional: bool = False,
+                    erase_beginning: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Debt-carrying relocation: (N, C, H, W) voxels -> int32 counts and f32
     tendency, each (N, C-1, H, W).
 
@@ -98,10 +112,13 @@ def relocate_counts(y: torch.Tensor, *, bidirectional: bool = False
     folded into the last output bin. Bidirectional: the forward ceil fills
     bins [0, (C-1)//2), a backward floor (clipped at 0) fills (C//2, C-2]
     from the last input bin, and the middle bin C//2 meets both; for C = 10
-    bin 4 stays 0, as in the reference."""
+    bin 4 stays 0, as in the reference. `erase_beginning` zeroes the values
+    below 0.001 first."""
     eps = f32(1e-6, y.device)
     n, c, h, w = y.shape
     y = y.float()
+    if erase_beginning:
+        y = torch.where(y < f32(0.001, y.device), torch.zeros_like(y), y)
     until = (c - 1) // 2 if bidirectional else c - 1
     debt = torch.zeros_like(y[:, 0])
     counts, tend = [], []
@@ -255,9 +272,9 @@ def supports_rows(p: int, h: int, w: int, *, fps: int, c: int = 10,
 
 
 def check_config(cfg: SamplerConfig, p: int, c: int, h: int, w: int) -> None:
-    """Raise unless the port covers this sampler configuration. What it
-    does not cover is the JAX v2 core (`ldati.py:220-570`), which runs where
-    the packed key cannot hold the voxel ids (W > 1008 at 30 fps)."""
+    """Raise unless the port covers this sampler configuration. Where the
+    packed key cannot hold the voxel ids (e.g. 260x346 at 13 fps or less,
+    or wider than 1008 px at 30 fps) the v2 core runs."""
     if cfg.additional_events_strategy not in STRATEGIES:
         raise ValueError(f"strategy must be one of {STRATEGIES}, "
                          f"got {cfg.additional_events_strategy!r}")
@@ -266,11 +283,6 @@ def check_config(cfg: SamplerConfig, p: int, c: int, h: int, w: int) -> None:
                          f"got {cfg.pooling_type!r}")
     if c != 10:
         raise NotImplementedError(f"LDATI expects 10 time bins, got {c}")
-    if not supports_rows(p, h, w, fps=cfg.fps, c=c):
-        raise NotImplementedError(
-            f"the packed key cannot hold {p}x{h}x{w} voxel ids at fps={cfg.fps}; "
-            "that needs the v2 sampler core, which is not ported (ROADMAP, "
-            "queue 1: the v2 sampler core)")
     if cfg.multi_cap >= 1 << 22:
         raise ValueError(f"multi_cap={cfg.multi_cap} must fit the 22-bit slot field "
                          "of the multi-pool ordering key")
@@ -302,6 +314,186 @@ def _gen_kernel_route(cfg: SamplerConfig) -> Optional[str]:
 
 
 # ---------------------------------------------------------------------------
+# The v2 core: one flat (timestamp, voxel) sort per frame (ldati.py:220-570)
+# ---------------------------------------------------------------------------
+
+def frame_order_voxels(a: torch.Tensor, bb: int, p: int, cb: int, h: int,
+                       w: int) -> torch.Tensor:
+    """(B*P, C, H, W)-shaped per-voxel data -> (B, C*P*H*W) in the per-frame
+    voxel order (C, P_flipped, H, W): OFF before ON within a bin
+    (`ldati.py:572`)."""
+    a = torch.flip(a.reshape(bb, p, cb, h, w), [1]).transpose(1, 2)
+    return a.reshape(bb, cb * p * h * w)
+
+
+def _top_k_indices(score: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries of each row of a non-negative int32
+    (B, N) score, in `lax.top_k`'s order: score descending, the lower index
+    first on ties. The (score, N-1-index) pairs are unique int64 keys, so
+    the order does not rest on how `torch.topk` breaks ties."""
+    n = score.shape[1]
+    idx = torch.arange(n, dtype=torch.int64, device=score.device)
+    comp = (score.to(torch.int64) << 32) | (n - 1 - idx)
+    return torch.topk(comp, k, dim=1, sorted=True).indices.to(torch.int32)
+
+
+def _tier_v2(j: int, pool: int) -> int:
+    """Slots the pool offers slot j (`ldati.py:286-289`): the whole pool up
+    to j = 3, then halving with a 4096 floor. Not the v3 core's tiers."""
+    return pool if j <= 3 else min(pool, max(pool >> (j - 3), 4096))
+
+
+def _gather(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.gather(a, 1, idx.to(torch.int64))
+
+
+def compact_frame_events(emit_count: torch.Tensor, ts_fn, draw: Draw, *,
+                         max_events_per_voxel: int, max_multi_voxels: int,
+                         capacity: int):
+    """Sort-compact every event of each frame into a capacity-wide buffer in
+    timestamp order (`ldati.py:220`), for B frames at once.
+
+    emit_count (B, V) int32 is the events each voxel emits. Every voxel
+    with emit_count > 0 gives its slot-0 event; the voxels with
+    emit_count >= 2 form a pool of max_multi_voxels that gives slots 1 ..
+    mepv-1, chosen by top-k of the extra count (of whole 16-voxel blocks by
+    their largest extra when V and the pool are multiples of 16 and the
+    pool is smaller than V), slot j taking a prefix of the pool
+    (`_tier_v2`). `ts_fn(j, u, vox_idx)` maps slot j and the (B, n) draws u
+    to int32 µs; vox_idx is None for slot 0 over every voxel, else the
+    (B, n) pool voxels. The (key, voxel) pairs are sorted stably, so ties
+    keep the candidates' order: slot 0 by voxel, then each tier in pool
+    order, then the padding.
+
+    Returns (t_us (B, capacity), vox_id (B, capacity), count (B,),
+    dropped (B,)): every event beyond the pool, the tiers or the capacity
+    is counted in dropped."""
+    bb, v = emit_count.shape
+    dev = emit_count.device
+    vox_ids = torch.arange(v, dtype=torch.int32, device=dev).expand(bb, v)
+    u0 = draw(0, (bb, v))
+    key_parts = [torch.where(emit_count > 0, ts_fn(0, u0, None), INVALID)]
+    id_parts = [vox_ids]
+    emitted = (emit_count > 0).sum(dim=1, dtype=torch.int32)
+
+    if max_events_per_voxel > 1:
+        pool = min(max_multi_voxels, v)
+        extra = torch.clamp(emit_count - 1, min=0)
+        block = 16
+        if v % block == 0 and pool % block == 0 and pool < v:
+            block_score = extra.reshape(bb, v // block, block).amax(dim=2)
+            blk = _top_k_indices(block_score, pool // block)
+            pool_idx = (blk[:, :, None] * block
+                        + torch.arange(block, dtype=torch.int32, device=dev)
+                        ).reshape(bb, pool)
+        else:
+            pool_idx = _top_k_indices(extra, pool)
+        pool_extra = _gather(extra, pool_idx)
+        for j in range(1, max_events_per_voxel):
+            n_j = _tier_v2(j, pool)
+            u = draw(j, (bb, n_j))
+            valid_j = pool_extra[:, :n_j] >= j
+            key_parts.append(torch.where(valid_j, ts_fn(j, u, pool_idx[:, :n_j]), INVALID))
+            id_parts.append(pool_idx[:, :n_j])
+            emitted = emitted + valid_j.sum(dim=1, dtype=torch.int32)
+
+    all_keys = torch.cat(key_parts, dim=1)
+    all_ids = torch.cat(id_parts, dim=1)
+    if all_keys.shape[1] < capacity:                     # tiny inputs
+        pad = capacity - all_keys.shape[1]
+        all_keys = F.pad(all_keys, (0, pad), value=INVALID)
+        all_ids = F.pad(all_ids, (0, pad))
+    sorted_keys, perm = torch.sort(all_keys, dim=1, stable=True)
+    sorted_ids = torch.gather(all_ids, 1, perm[:, :capacity])
+    count = torch.clamp(emitted, max=capacity)
+    dropped = emit_count.sum(dim=1, dtype=torch.int32) - count
+    return sorted_keys[:, :capacity], sorted_ids, count, dropped
+
+
+def _compact_one_frame(emit_count, chain_ts_us, is_chain, k, b, bin_start_s, draw: Draw, *,
+                       strategy: str, voxel_step: float, max_events_per_voxel: int,
+                       max_multi_voxels: int, capacity: int):
+    """LDATI's slot -> timestamp rule on the v2 compaction (`ldati.py:521`),
+    for B frames of (B, V) per-voxel data: slot 0 is the chain timestamp of
+    a count-1 voxel and a draw otherwise, slots >= 1 are draws; 'slope'
+    draws from the linear density, 'random' keeps raw U[0, 1) seconds past
+    the bin start, 'none' emits the chain timestamps alone."""
+    dev = emit_count.device
+    us = f32(1e6, dev)
+
+    def additional_us(u, kk, bb_, bins):
+        t_add = inverse_cdf_ts(u, kk, bb_, voxel_step, fuse_square=True) \
+            if strategy == "slope" else u
+        return ((t_add + bins) * us).to(torch.int32)
+
+    def ts_fn(j, u, vox_idx):
+        if strategy == "none":
+            return chain_ts_us if vox_idx is None else _gather(chain_ts_us, vox_idx)
+        if vox_idx is None:
+            return torch.where(is_chain, chain_ts_us, additional_us(u, k, b, bin_start_s))
+        return additional_us(u, _gather(k, vox_idx), _gather(b, vox_idx),
+                             _gather(bin_start_s, vox_idx))
+
+    return compact_frame_events(
+        emit_count, ts_fn, draw,
+        max_events_per_voxel=1 if strategy == "none" else max_events_per_voxel,
+        max_multi_voxels=max_multi_voxels, capacity=capacity)
+
+
+def _sample_events_v2(voxels: torch.Tensor, draw: Draw, cfg: SamplerConfig, *, t0: float,
+                      max_multi_voxels: int) -> EventStream:
+    """The non-v3 tail of the JAX `sample_events` (`ldati.py:1118-1207`):
+    relocation and slope on the grid, per-voxel emit counts, the per-frame
+    voxel order, and the v2 compaction of each frame."""
+    from v2ce_toolbox_tpu_torch.ops.gen import bin_constants, tend_scale
+
+    bb, p, c, h, w = voxels.shape
+    n, cb = bb * p, c - 1
+    dev = voxels.device
+    fps = cfg.fps
+    mepv = cfg.max_events_per_voxel
+    strategy = cfg.additional_events_strategy
+    voxel_step = 1.0 / fps / cb
+
+    counts, tendency = relocate_counts(voxels.float().reshape(n, c, h, w),
+                                       bidirectional=cfg.bidirectional)
+    bs = torch.from_numpy(bin_constants(cb, fps, t0)[0]).to(dev).view(1, cb, 1, 1)
+    if strategy == "none" and t0 == 0:
+        # XLA:CPU contracts the other product of `tend * scale + bin * vs`
+        # when nothing else reads the bin starts
+        iota = torch.arange(cb, dtype=torch.float32, device=dev).view(1, cb, 1, 1)
+        chain = fma32(iota, np.float32(voxel_step), tendency * f32(tend_scale(cb, fps), dev))
+    else:
+        chain = fma32(tendency, tend_scale(cb, fps), bs)
+    chain_ts_us = (chain * f32(1e6, dev)).to(torch.int32)
+    if strategy == "slope":
+        k, b = slope_params(counts.float(), fps, pooling_type=cfg.pooling_type,
+                            pooling_kernel_size=cfg.pooling_kernel_size)
+    else:
+        k = b = torch.zeros_like(tendency)
+
+    is_chain = counts == 1
+    if strategy == "none":
+        emit = is_chain.to(torch.int32)
+        cap_dropped = torch.zeros_like(counts)
+    else:
+        emit = torch.where(is_chain, 1, torch.clamp(counts, max=mepv)).clamp(min=0)
+        cap_dropped = torch.where(counts > mepv, counts - mepv, 0)
+
+    def fo(a):
+        return frame_order_voxels(a, bb, p, cb, h, w)
+
+    t_us, vox_id, count, dropped = _compact_one_frame(
+        fo(emit), fo(chain_ts_us), fo(is_chain), fo(k), fo(b),
+        fo(bs.expand(n, cb, h, w)), draw, strategy=strategy, voxel_step=voxel_step,
+        max_events_per_voxel=mepv if strategy != "none" else 1,
+        max_multi_voxels=max_multi_voxels, capacity=cfg.event_capacity)
+    return decode_event_stream(t_us, vox_id, count,
+                               dropped + fo(cap_dropped).sum(dim=1, dtype=torch.int32),
+                               p, h, w)
+
+
+# ---------------------------------------------------------------------------
 # The sampler
 # ---------------------------------------------------------------------------
 
@@ -312,8 +504,7 @@ def _frame_order(a: torch.Tensor, bb: int, p: int, cb: int, h: int, w: int,
     (B, cb, P_flipped*H, W)."""
     if pre_ordered:
         return a.reshape(bb, cb, p * h * w)
-    a = torch.flip(a.reshape(bb, p, cb, h, w), [1]).transpose(1, 2)
-    return a.reshape(bb, cb, p * h * w)
+    return frame_order_voxels(a, bb, p, cb, h, w).reshape(bb, cb, p * h * w)
 
 
 def _grid_candidates(voxels: torch.Tensor, draw: Draw, cfg: SamplerConfig, t0: float):
@@ -393,7 +584,8 @@ def _grid_candidates(voxels: torch.Tensor, draw: Draw, cfg: SamplerConfig, t0: f
 
 
 def sample_events(voxels: torch.Tensor, draw: Draw, cfg: SamplerConfig, *,
-                  t0: float = 0.0, return_rows: bool = False):
+                  t0: float = 0.0, return_rows: bool = False,
+                  max_multi_voxels: int = 1 << 16):
     """Sample a timestamped event stream from predicted voxels.
 
     Args:
@@ -402,6 +594,10 @@ def sample_events(voxels: torch.Tensor, draw: Draw, cfg: SamplerConfig, *,
       cfg: sampler settings; `cfg.fps` sets the bin width.
       t0: start of the chunk in seconds, added to the bin starts.
       return_rows: hand back the post-sort rows instead of the stream.
+      max_multi_voxels: the v2 core's pool of multi-event voxels a frame.
+        The v2 core runs where the packed key cannot hold the voxel ids
+        (`supports_rows`): per-frame buffers of width event_capacity
+        sorted by timestamp over the whole frame.
     Returns:
       With return_rows: rel (B*9, W) int32 µs within the row's bin, sorted
       ('random': in draw order of rel), INVALID tail; gvox (B*9, W) int32
@@ -415,6 +611,14 @@ def sample_events(voxels: torch.Tensor, draw: Draw, cfg: SamplerConfig, *,
 
     bb, p, c, h, w = voxels.shape
     check_config(cfg, p, c, h, w)
+    if not supports_rows(p, h, w, fps=cfg.fps, c=c,
+                         additional_events_strategy=cfg.additional_events_strategy,
+                         pooling_type=cfg.pooling_type):
+        if return_rows:
+            raise ValueError("return_rows needs the v3 sampler core: the packed key must "
+                             "hold the voxel ids (supports_rows)")
+        return _sample_events_v2(voxels, draw, cfg, t0=t0,
+                                 max_multi_voxels=max_multi_voxels)
     dev = voxels.device
     cb = c - 1
     fps = cfg.fps
@@ -574,7 +778,8 @@ def sample_voxel_statistical(y, t0: float = 0, fps: int = 30, pooling_type: str 
                              pooling_kernel_size: int = 3,
                              additional_events_strategy: str = "slope",
                              bidirectional: bool = False, draw: Optional[Draw] = None,
-                             max_events_per_voxel: int = 16, capacity: int = 1 << 19,
+                             max_events_per_voxel: int = 16,
+                             max_multi_voxels: int = 1 << 16, capacity: int = 1 << 19,
                              device="cuda") -> List[np.recarray]:
     """Drop-in counterpart of the reference entry point
     (`ldati.py:1226`): a (B, P, C, H, W) voxel grid -> a list of B
@@ -590,4 +795,5 @@ def sample_voxel_statistical(y, t0: float = 0, fps: int = 30, pooling_type: str 
                         event_capacity=capacity)
     if draw is None:
         draw = make_draw(0, 0, v.device)
-    return to_recarrays(sample_events(v, draw, cfg, t0=float(t0)))
+    return to_recarrays(sample_events(v, draw, cfg, t0=float(t0),
+                                      max_multi_voxels=max_multi_voxels))

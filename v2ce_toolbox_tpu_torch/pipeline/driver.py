@@ -12,7 +12,8 @@
 per 16-frame window and keeps only the per-polarity sums for the preview.
 Stage 2 takes the fused route (the sampler's post-sort rows straight into
 the wire format, `_fetch_chunk_events_fused`) unless the configuration
-needs the EventStream route (bidirectional relocation):
+needs the EventStream route (bidirectional relocation, or a geometry whose
+voxel ids the packed key cannot hold, which runs the v2 sampler core):
 `sample_events` -> per-frame buffers -> `_flatten_chunk_stream` (K5).
 
 Wire format (as in v2ce_toolbox_tpu/pipeline/driver.py): each event is a
@@ -74,6 +75,19 @@ _SPARSE_SWITCH = 9 / 32
 def _x_bits_for_width(width: int) -> int:
     """x field width: 9 bits up to 512 px wide, else 10."""
     return 9 if width <= 512 else 10
+
+
+def check_wire(height: int, width: Optional[int] = None) -> None:
+    """Raise unless every (y, x) of a height x width stream fits the wire
+    record: y has 9 bits and x 10 at most (`_x_bits_for_width`). Past them
+    y runs into x's field and x into the delta's, and the JAX package
+    writes wrong coordinates and timestamps without an error. With width
+    None only the height is checked (a pano stream's width is known at its
+    first window)."""
+    if height > 512 or (width is not None and width > 1024):
+        raise ValueError(
+            f"a {height}x{width or '?'} event stream does not fit the wire record: y has "
+            "9 bits (height <= 512) and x 10 (width <= 1024)")
 
 
 def _sparse_delta_bits(x_bits: int) -> int:
@@ -380,6 +394,8 @@ class V2cePipeline:
         self.config = config
         if config.infer_type == "center":
             self._check_sampler(config.width)
+        else:                           # the pano width is known at the first window
+            check_wire(config.height)
         self.device = torch.device(device)
         self.seed = seed
         self.model = V2ce3d(config.model)
@@ -389,7 +405,10 @@ class V2cePipeline:
         self.timings = {}
 
     def _check_sampler(self, out_width: int) -> None:
+        """The sampler's settings and the wire record's limits, for a stream
+        out_width wide (center: the crop; pano: the resized width)."""
         cfg = self.config
+        check_wire(cfg.height, out_width)
         check_config(dataclasses.replace(cfg.sampler, fps=cfg.fps), 2, 10,
                      cfg.height, out_width)
 
