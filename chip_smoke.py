@@ -140,6 +140,24 @@ Phases, any failure exits non-zero before the result lines:
      the wire record's 10-bit x) before the model is built; (f) the port's
      `tools/stage2_eval` over all seven samplers on 2 frames of phase
      11's packets.
+ 14. training (`train/`, `train.main`): (a) one train step of the
+     full-width V2ce3d (base 32, 4 encoders) with PatchDiscriminator2D,
+     `train.main`'s default loss stack (pyramid gan ef ef_splitp
+     compensation, gan_k 3), on the card and on the CPU from the same
+     seeded weights and a (2, 2, 64, 96) batch, TF32 off: each log term
+     (loss, d_loss and every component), the BN statistics and SN vectors,
+     both nets' gradients (Adam first moments), and their parameters
+     against Adam's reach, with the tolerances set out at TRAIN_CMP_SHAPE;
+     (b) `python -m
+     v2ce_toolbox_tpu_torch.train.main`'s `main` on the card on dummy
+     260x346 packets (`data/dummy_data_gen.generate`), batch 4, seq 16,
+     TRAIN_STEPS steps of one epoch, the eval with previews and
+     `--record_predictions 1`, then a run resumed with `--load_dir` for one
+     step: every logged value finite, the checkpoints, the preview and the
+     recorder written, the resumed run starting from the saved step; the
+     ms of each step (median of the warm ones) and the peak GiB; (c) the
+     launch counters over (b), which must all stay 0 (the convs are
+     cuDNN's; the kernels line carries each kernel's `training_launches`).
 The line before the last is a JSON object of per-kernel results (its
 `launches` is the count of the kernel's own path, KERNEL_PATH, and
 `launches_by_path` every counted path's count; K9's and K10's times are
@@ -205,6 +223,25 @@ CORR_REL_TOL, FLOW_REL_TOL = 1e-5, 1e-4
 # two dtypes), the probe CLI's probes and the roofline's op counts
 N_PROBE_TIMED = 7
 K_LO, K_HI = 64, 256
+# phase 14, training: the card-vs-CPU step's (B, L, H, W), and train.main's
+# run at the main path's 260x346 (40 packets: 32 train, 4 val, 4 test).
+# Card against CPU after one step: each log term within TRAIN_LOG_REL_TOL
+# of the CPU's; BN statistics and SN vectors within TRAIN_STATE_REL_TOL of
+# each tensor's largest element; the Adam first moments (the gradients)
+# within TRAIN_GRAD_REL_TOL of each tensor's largest, because two f32 runs
+# of a ReLU net part where a pre-activation lies within rounding of 0 (one
+# such position in a coarse layer moves its weight gradient by ~2% of the
+# largest); every parameter within Adam's reach, 2 lr a step (an element
+# whose gradient is at rounding level moves +-lr on either side), and at
+# most TRAIN_PARAM_SHARE of the generator's elements moved differently by
+# more than 1e-3 lr. The projection biases before a train-mode BN
+# (TRAIN_DEAD_BIAS) have a gradient that is zero in exact arithmetic: their
+# moments are rounding noise and are not compared.
+TRAIN_CMP_SHAPE = (2, 2, 64, 96)
+TRAIN_PACKETS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 40, 4, 16, 4
+TRAIN_LOG_REL_TOL, TRAIN_STATE_REL_TOL, TRAIN_GRAD_REL_TOL = 1e-4, 1e-4, 1e-1
+TRAIN_PARAM_SHARE = 0.01
+TRAIN_DEAD_BIAS = "downsample.0.bias"
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -1784,6 +1821,165 @@ def probe_phase(torch, np, dev, counted, smi):
         "op_rate", "ilp_rate", "stream_rate", "row_rate")}}
 
 
+def _train_rel(a, b):
+    """max |a - b| over the largest |b| (0 where both are all zero)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    top = float(b.abs().max()) if b.numel() else 0.0
+    err = float((a - b).abs().max()) if b.numel() else 0.0
+    return err / top if top else err
+
+
+def train_step_phase(torch, np, dev, smi):
+    """Phase 14 (a): one train step of the full-width V2ce3d with
+    PatchDiscriminator2D, `train.main`'s default loss stack and gan_k, on
+    the card and on the CPU from the same weights and batch
+    (TRAIN_CMP_SHAPE; TF32 off). Returns the worst error of each group."""
+    import copy
+
+    from v2ce_toolbox_tpu_torch.config import ModelConfig, TrainConfig
+    from v2ce_toolbox_tpu_torch.models import V2ce3d
+    from v2ce_toolbox_tpu_torch.train import gan, state as tstate, step as tstep
+    from v2ce_toolbox_tpu_torch.train.main import build_parser
+
+    args = build_parser().parse_args([])
+    cfg = TrainConfig(loss="+".join(args.loss), lr=args.lr, weight_decay=args.weight_decay,
+                      lr_scheduler=args.lr_scheduler)
+    b, l, h, w = TRAIN_CMP_SHAPE
+    rng = np.random.RandomState(0)
+    batch = {"image_units": rng.randn(b, l, h, w, 2).astype(np.float32),
+             "voxels": (rng.rand(b, l, h, w, 20) * 3
+                        * (rng.rand(b, l, h, w, 20) < 0.2)).astype(np.float32)}
+    model, disc = V2ce3d(ModelConfig()), gan.make_discriminator(args.gan_3d_conv)
+    tstate.create_train_state(model, cfg, disc=disc, seed=0)          # seeded weights
+    runs = {}
+    for where in ("cpu", dev):
+        m, d = copy.deepcopy(model).to(where), copy.deepcopy(disc).to(where)
+        st = tstate.create_train_state(m, cfg, disc=d, init=False)
+        step = tstep.make_train_step(m, cfg, disc=d, gan_k=args.gan_k)
+        t0 = time.perf_counter()
+        st, logs = step(st, {k: torch.from_numpy(v).to(where) for k, v in batch.items()})
+        if where != "cpu":
+            torch.cuda.synchronize()
+        runs[str(where)] = (st, {k: float(v) for k, v in logs.items()},
+                            time.perf_counter() - t0)
+    (cs, clogs, cpu_s), (gs, glogs, card_s) = runs["cpu"], runs[str(dev)]
+    errs = {"logs": max(abs(glogs[k] - v) / max(abs(v), 1e-30) for k, v in clogs.items())}
+    csd, gsd = cs.model.state_dict(), gs.model.state_dict()
+    for k, v in csd.items():
+        if "running_" in k or k.endswith(("weight_u", "weight_v")):
+            group = "BN statistics" if "running_" in k else "SN vectors"
+            errs[group] = max(errs.get(group, 0.0), _train_rel(gsd[k], v))
+    # parameters, in units of each net's lr times its updates, and the
+    # generator's share of elements moved differently by more than 1e-3 lr
+    disc_lr = cs.disc_opt.param_groups[0]["lr"]
+    moved = apart = 0
+    for net, c, g, reach in (("generator", cs.model, gs.model, cfg.lr),
+                             ("discriminator", cs.disc, gs.disc, args.gan_k * disc_lr)):
+        for (name, cp), gp in zip(c.named_parameters(), g.parameters()):
+            d = (gp.detach().cpu() - cp.detach()).abs()
+            errs[f"{net} params / (2 lr)"] = max(errs.get(f"{net} params / (2 lr)", 0.0),
+                                                 float(d.max()) / (2 * reach))
+            if net == "generator" and cp.requires_grad:
+                apart += int((d > 1e-3 * cfg.lr).sum())
+                moved += d.numel()
+            if cp.requires_grad and TRAIN_DEAD_BIAS not in name:
+                opt_c, opt_g = (cs.opt, gs.opt) if net == "generator" else (cs.disc_opt,
+                                                                            gs.disc_opt)
+                errs[f"{net} Adam m1"] = max(errs.get(f"{net} Adam m1", 0.0),
+                                             _train_rel(opt_g.state[gp]["exp_avg"],
+                                                        opt_c.state[cp]["exp_avg"]))
+    share = apart / moved
+    limits = {"logs": TRAIN_LOG_REL_TOL, "BN statistics": TRAIN_STATE_REL_TOL,
+              "SN vectors": TRAIN_STATE_REL_TOL, "generator Adam m1": TRAIN_GRAD_REL_TOL,
+              "discriminator Adam m1": TRAIN_GRAD_REL_TOL,
+              "generator params / (2 lr)": 1 + 1e-3, "discriminator params / (2 lr)": 1 + 1e-3}
+    log(f"[train] one step, card vs CPU, full-width V2ce3d + PatchDiscriminator2D, batch "
+        f"{TRAIN_CMP_SHAPE}, loss {cfg.loss}, gan_k {args.gan_k}: "
+        + ", ".join(f"{k} {v:.3e} (limit {limits[k]:g})" for k, v in errs.items())
+        + f"; generator elements moved apart by > 1e-3 lr: {apart} of {moved} ({share:.3%}, "
+        f"limit {TRAIN_PARAM_SHARE:.0%}); loss card {glogs['loss']:.6f} CPU "
+        f"{clogs['loss']:.6f}; step card {card_s:.2f} s, CPU {cpu_s:.2f} s [{smi}]")
+    bad = [k for k, v in errs.items() if not v <= limits[k]]
+    if (bad or not share <= TRAIN_PARAM_SHARE
+            or not all(np.isfinite(v) for v in list(clogs.values()) + list(glogs.values()))):
+        raise AssertionError(f"the card's train step disagrees with the CPU's: {bad}, "
+                             f"share {share}")
+    return errs
+
+
+def train_run_phase(torch, np, counted, smi):
+    """Phase 14 (b), (c): `train.main` on the card at 260x346, batch
+    TRAIN_BATCH, seq TRAIN_SEQ, counted (no port kernel may launch):
+    TRAIN_STEPS steps of one epoch, the eval with previews and one recorded
+    batch, then a run resumed from its checkpoints for one step. Every
+    logged value finite, the checkpoints, preview and recorder written, the
+    resumed run starting from the saved step. Returns its numbers."""
+    import shutil
+
+    from v2ce_toolbox_tpu_torch.data.dummy_data_gen import generate
+    from v2ce_toolbox_tpu_torch.train import main as train_main
+
+    data, logs = os.path.join(OUT, "train_packets"), os.path.join(OUT, "train_logs")
+    for d in (data, logs):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.time()
+    generate(data, num_packets=TRAIN_PACKETS, height=H, width=W)
+    gen_s = time.time() - t0
+    common = ["--data_dir", data, "--log_dir", logs, "--batch_size", str(TRAIN_BATCH),
+              "--seq_len", str(TRAIN_SEQ), "--max_epochs", "1", "--log_frequency", "1",
+              "--device", DEVICE]
+
+    def run():
+        first = train_main.main(common + ["--exp_name", "full", "--record_predictions", "1",
+                                          "--max_steps_per_epoch", str(TRAIN_STEPS)])
+        resumed = train_main.main(common + [
+            "--exp_name", "resumed", "--max_steps_per_epoch", "1", "--dump_previews", "false",
+            "--load_dir", os.path.join(first["work_dir"], "checkpoints")])
+        return first, resumed
+
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    (first, resumed), peak = peak_gib(torch, lambda: counted("training", (), run))
+    wall = time.time() - t0
+    launched = {k: c for k, c in counted.by_path["training"].items() if c}
+    if launched:
+        raise AssertionError(f"training launched port kernels: {launched}")
+
+    def lines(work, kind):
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            return [x[kind] for x in map(json.loads, f) if kind in x]
+
+    work = first["work_dir"]
+    train, evals = lines(work, "train"), lines(work, "eval")
+    ckpts = sorted(os.listdir(os.path.join(work, "checkpoints")))
+    saved = torch.load(os.path.join(work, "checkpoints", "last"), map_location="cpu",
+                       weights_only=True)["step"]
+    rtrain = lines(resumed["work_dir"], "train")
+    vals = [v for x in train + evals + rtrain for v in x.values()]
+    ok = (len(train) == TRAIN_STEPS and len(evals) == 1 and all(np.isfinite(vals))
+          and ckpts == ["best-epoch=0", "last"] and saved == TRAIN_STEPS
+          and os.path.getsize(os.path.join(work, "previews", "epoch0.png")) > 0
+          and os.path.exists(os.path.join(work, "recorder", "val-e0-b0.pkl"))
+          and rtrain[0]["global_step"] == TRAIN_STEPS + 1 and resumed["state"].step
+          == TRAIN_STEPS + 1)
+    steps_ms = [s * 1e3 for s in first["step_s"]]
+    warm = statistics.median(steps_ms[1:])
+    losses = ", ".join(f"{x['loss']:.4f}" for x in train)
+    log(f"[train] train.main on the card, {H}x{W}, batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, "
+        f"default loss stack (gan_k 3): steps {', '.join(f'{t:.1f}' for t in steps_ms)} ms, "
+        f"median warm {warm:.1f} ms a step; resumed from step {saved}, its step "
+        f"{resumed['step_s'][0] * 1e3:.1f} ms; peak {peak:.2f} GiB; losses {losses}, "
+        f"resumed {rtrain[0]['loss']:.4f}; "
+        f"eval BinaryMatchF1_sum_c {evals[0]['BinaryMatchF1_sum_c']:.4f}; "
+        f"{TRAIN_PACKETS} packets made in {gen_s:.1f} s; both runs {wall:.1f} s (TF32 off) "
+        f"[{smi}]")
+    if not ok:
+        raise AssertionError(f"train.main on the card: train lines {train}, evals {evals}, "
+                             f"checkpoints {ckpts} (step {saved}), resumed {rtrain}")
+    shutil.rmtree(data, ignore_errors=True)
+    return {"step_ms": steps_ms, "median_warm_ms": warm, "peak_gib": peak}
+
+
 def main():
     import torch
 
@@ -1854,6 +2050,10 @@ def main():
         if counted.by_path[KERNEL_PATH[name]][name] <= 0:
             raise AssertionError(f"{KERNEL_PATH[name]} never launched {name}")
 
+    # 14. training: one step card vs CPU, then train.main at 260x346, counted
+    train_step_phase(torch, np, dev, smi)
+    train_run_phase(torch, np, counted, smi)
+
     # 6. stage 1 on the card against the CPU: the full-width model, seeded
     # weights, one 16-frame window of 64x96 (TF32 off; cuDNN and the CPU
     # sum the conv products in other orders)
@@ -1894,6 +2094,7 @@ def main():
                         "launches": counted.by_path[path][name], "launches_path": path,
                         "launches_by_path": {p: c[name] for p, c in counted.by_path.items()
                                              if c[name]},
+                        "training_launches": counted.by_path["training"][name],
                         "max_abs_err": errs[name],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r.get("bound_by", "bytes"),

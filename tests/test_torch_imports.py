@@ -13,6 +13,7 @@ MODULES = [
     "v2ce_toolbox_tpu_torch.config",
     "v2ce_toolbox_tpu_torch.events",
     "v2ce_toolbox_tpu_torch.eval",
+    "v2ce_toolbox_tpu_torch.eval.baseline_metrics",
     "v2ce_toolbox_tpu_torch.eval.stage2_metrics",
     "v2ce_toolbox_tpu_torch.cli",
     "v2ce_toolbox_tpu_torch.data",
@@ -49,8 +50,21 @@ MODULES = [
     "v2ce_toolbox_tpu_torch.pipeline.render",
     "v2ce_toolbox_tpu_torch.pipeline.windows",
     "v2ce_toolbox_tpu_torch.tools",
+    "v2ce_toolbox_tpu_torch.tools.baseline_metric",
+    "v2ce_toolbox_tpu_torch.tools.overfit_demo",
     "v2ce_toolbox_tpu_torch.tools.perf_probe",
     "v2ce_toolbox_tpu_torch.tools.stage2_eval",
+    "v2ce_toolbox_tpu_torch.tools.vis_tools",
+    "v2ce_toolbox_tpu_torch.train",
+    "v2ce_toolbox_tpu_torch.train.gan",
+    "v2ce_toolbox_tpu_torch.train.losses",
+    "v2ce_toolbox_tpu_torch.train.main",
+    "v2ce_toolbox_tpu_torch.train.metrics",
+    "v2ce_toolbox_tpu_torch.train.state",
+    "v2ce_toolbox_tpu_torch.train.step",
+    "v2ce_toolbox_tpu_torch.train.voxel_encoder",
+    "v2ce_toolbox_tpu_torch.utils.checkpoint",
+    "v2ce_toolbox_tpu_torch.utils.runtime",
     "v2ce_toolbox_tpu_torch.utils.v2e",
     "v2ce_toolbox_tpu_torch.utils.weights",
 ]

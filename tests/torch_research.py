@@ -9,6 +9,7 @@ import math
 from unittest import mock
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -29,6 +30,17 @@ RESEARCH = dict(conv_impl="pallas", subpixel_decoder=True, subpixel_impl="pallas
                 subpixel_blocks=2)
 # 18 -> 9 -> 5 rows, 26 -> 13 -> 7 columns: decoder_0 sees odd H and W
 X_SHAPE = (1, 4, 18, 26, 2)
+
+
+@pytest.fixture(scope="module")
+def two_torch_threads():
+    """torch on two threads for a module: under pytest-xdist every
+    worker's OpenMP pool would claim all the cores, and the oversubscribed
+    pools spin."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def fill_variables(init_fn, seed):

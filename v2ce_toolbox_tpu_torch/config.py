@@ -1,4 +1,4 @@
-"""Configuration dataclasses for the V2CE pipeline.
+"""Configuration dataclasses for the V2CE pipeline and its training.
 
 Same field names and defaults as `v2ce_toolbox_tpu/config.py`. Of the
 stage-1 model's backend knobs the port runs conv_impl 'xla' (cuDNN) and
@@ -9,7 +9,7 @@ K10 kernel); the TPU-only XLA rewrites, layouts and remat are not ported.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -114,3 +114,31 @@ class PipelineConfig:
     write_event_frame_video: bool = True
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     sampler: SamplerConfig = dataclasses.field(default_factory=SamplerConfig)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (the JAX package's TrainConfig)."""
+
+    lr: float = 1e-3
+    weight_decay: float = 1e-5
+    lr_scheduler: Optional[str] = "step"   # 'step' | 'cosine' | None
+    lr_decay_steps: int = 20
+    lr_decay_rate: float = 0.5
+    lr_decay_min_lr: float = 1e-5
+    batch_size: int = 2
+    max_epochs: int = 100
+    seed: int = 1234
+    loss: str = "ef+pyramid"
+    ef_type: str = "c+cl"            # 'only_c' | 'cl' | 'c+cl'
+    add_base_loss: bool = False      # pyramid loss includes the unpooled MSE
+    metrics: Tuple[str, ...] = (
+        "BinaryMatch_raw",
+        "BinaryMatch_sum_c",
+        "BinaryMatch_sum_cp",
+        "BinaryMatchF1_raw",
+        "BinaryMatchF1_sum_c",
+        "BinaryMatchF1_sum_cp",
+        "PoolMSE_2",
+        "PoolMSE_4",
+    )

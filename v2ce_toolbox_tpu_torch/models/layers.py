@@ -53,6 +53,31 @@ def _apply_conv(x: torch.Tensor, w: torch.Tensor, stride, padding,
                     padding).float()
 
 
+class BatchNorm3d(nn.BatchNorm3d):
+    """nn.BatchNorm3d (same parameters, buffers and eval path) whose
+    train-mode forward is flax's `nn.BatchNorm`, as the JAX package trains
+    it: the batch variance is mean(x^2) - mean(x)^2, clipped at 0, and the
+    running variance moves toward that biased variance (torch's own moves
+    toward the unbiased one, n/(n-1) times larger). The output is
+    (x - mean) * (rsqrt(var + eps) * weight) + bias, in flax's op order;
+    gradients flow through the batch mean and variance."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = (0,) + tuple(range(2, x.dim()))
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+
 def _bn(bn: nn.BatchNorm3d, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """BatchNorm in f32, output in compute_dtype."""
     return bn(x.float()).to(compute_dtype)
@@ -83,7 +108,10 @@ class SNConv3d(nn.Module):
     """Conv3d with the reference's spectral norm: one power iteration from
     the stored (u, v) on every forward, sigma from the updated vectors, the
     kernel divided by sigma. u and v are written back only in training
-    mode; in eval nothing mutates."""
+    mode; in eval nothing mutates. Gradients flow through the power
+    iteration (u and v are functions of weight_bar), as in the JAX
+    package's SNConv; the iteration starts from a copy of the stored u, so
+    writing the new vectors back leaves the tensors autograd saved intact."""
 
     def __init__(self, cin: int, cout: int, k: int, stride=1, padding=0,
                  bias: bool = True, compute_dtype: torch.dtype = torch.float32,
@@ -98,7 +126,7 @@ class SNConv3d(nn.Module):
     def weight(self) -> torch.Tensor:
         m = self.module
         w2d = m.weight_bar.reshape(m.weight_bar.shape[0], -1)
-        v = _l2normalize(w2d.t() @ m.weight_u)
+        v = _l2normalize(w2d.t() @ m.weight_u.clone())
         u = _l2normalize(w2d @ v)
         sigma = u @ (w2d @ v)
         if self.training:
@@ -160,7 +188,7 @@ class ConvLayer3D(nn.Module):
         self.compute_dtype = compute_dtype
         self.conv3d = _conv(cin, cout, kernel_size, stride, padding, norm != "BN", sn,
                             compute_dtype)
-        self.norm_layer = (nn.BatchNorm3d(cout, eps=1e-5, momentum=0.01)
+        self.norm_layer = (BatchNorm3d(cout, eps=1e-5, momentum=0.01)
                            if norm == "BN" else None)
         self.activation = _activation(activation)
 
@@ -186,11 +214,11 @@ class ResidualBlock3D(nn.Module):
         self.conv1 = _conv(cin, cout, 3, stride, 1, bias, sn, compute_dtype, conv_impl)
         self.conv2 = _conv(cout, cout, 3, 1, 1, bias, sn, compute_dtype, conv_impl)
         with_bn = norm in ("BN", "IN")
-        self.bn1 = nn.BatchNorm3d(cout, eps=1e-5, momentum=0.1) if with_bn else None
-        self.bn2 = nn.BatchNorm3d(cout, eps=1e-5, momentum=0.1) if with_bn else None
+        self.bn1 = BatchNorm3d(cout, eps=1e-5, momentum=0.1) if with_bn else None
+        self.bn2 = BatchNorm3d(cout, eps=1e-5, momentum=0.1) if with_bn else None
         self.downsample = nn.Sequential(
             Conv3d(cin, cout, 1, stride, 0, True, compute_dtype),
-            nn.BatchNorm3d(cout, eps=1e-5, momentum=0.1))
+            BatchNorm3d(cout, eps=1e-5, momentum=0.1))
 
     def _norm(self, bn: Optional[nn.BatchNorm3d], x: torch.Tensor) -> torch.Tensor:
         return x if bn is None else _bn(bn, x, self.compute_dtype)

@@ -5,8 +5,11 @@ conversion from the JAX package's variable trees.
 `v2ce_toolbox_tpu/utils/torch_compat.convert_v2ce3d_state_dict`: it takes
 the flax {'params', 'batch_stats', 'sn'} tree (numpy arrays) and returns
 the port's state_dict (reference torch key names).
-`fastflownet_from_jax_variables` does the same for FastFlowNet, and
-`load_fastflownet` reads the port's own FastFlowNet `.pt`.
+`block_from_jax_variables` and `conv_layer_from_jax_variables` do it for
+one ResidualBlock3D or ConvLayer3D, `discriminator_from_jax_params` and
+`voxel_encoder_from_jax_variables` for the training path's
+PatchDiscriminator and VoxelEncoder, and `fastflownet_from_jax_variables`
+for FastFlowNet; `load_fastflownet` reads the port's own FastFlowNet `.pt`.
 """
 
 from __future__ import annotations
@@ -31,53 +34,127 @@ def _j2t_conv(k: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(k, (nsp + 1, nsp) + tuple(range(nsp))))
 
 
+def _to_torch(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=v.dtype if v.dtype == np.int64
+                                         else np.float32))
+            for k, v in sd.items()}
+
+
+def _conv_sd(sd: Dict, tkey: str, p: Mapping, s: Optional[Mapping]) -> None:
+    """A Conv (kernel, bias) or SNConv (kernel_bar, bias; u, v in `s`)."""
+    if "kernel_bar" in p:
+        sd[f"{tkey}.module.weight_bar"] = _j2t_conv(np.asarray(p["kernel_bar"]))
+        sd[f"{tkey}.module.weight_u"] = np.asarray(s["u"])
+        sd[f"{tkey}.module.weight_v"] = np.asarray(s["v"])
+        if "bias" in p:
+            sd[f"{tkey}.module.bias"] = np.asarray(p["bias"])
+    else:
+        sd[f"{tkey}.weight"] = _j2t_conv(np.asarray(p["kernel"]))
+        if "bias" in p:
+            sd[f"{tkey}.bias"] = np.asarray(p["bias"])
+
+
+def _bn_sd(sd: Dict, tkey: str, p: Mapping, s: Mapping) -> None:
+    sd[f"{tkey}.weight"] = np.asarray(p["bn"]["scale"])
+    sd[f"{tkey}.bias"] = np.asarray(p["bn"]["bias"])
+    sd[f"{tkey}.running_mean"] = np.asarray(s["bn"]["mean"])
+    sd[f"{tkey}.running_var"] = np.asarray(s["bn"]["var"])
+    sd[f"{tkey}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def _block_sd(sd: Dict, tkey: str, p: Mapping, s: Mapping, q: Mapping) -> None:
+    """A ResidualBlock3D: params p, batch_stats s, sn q."""
+    _conv_sd(sd, f"{tkey}conv1", p["conv1"], q.get("conv1"))
+    _conv_sd(sd, f"{tkey}conv2", p["conv2"], q.get("conv2"))
+    _bn_sd(sd, f"{tkey}bn1", p["bn1"], s["bn1"])
+    _bn_sd(sd, f"{tkey}bn2", p["bn2"], s["bn2"])
+    _conv_sd(sd, f"{tkey}downsample.0", p["downsample_conv"], None)
+    _bn_sd(sd, f"{tkey}downsample.1", p["downsample_bn"], s["downsample_bn"])
+
+
+def block_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ResidualBlock3D variables -> the port's ResidualBlock3D
+    state_dict."""
+    sd: Dict[str, np.ndarray] = {}
+    _block_sd(sd, "", variables["params"], variables.get("batch_stats", {}),
+              variables.get("sn", {}))
+    return _to_torch(sd)
+
+
+def conv_layer_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ConvLayer3D variables -> the port's ConvLayer3D state_dict."""
+    p, sd = variables["params"], {}
+    _conv_sd(sd, "conv3d", p["conv"], variables.get("sn", {}).get("conv"))
+    if "norm" in p:
+        _bn_sd(sd, "norm_layer", p["norm"], variables["batch_stats"]["norm"])
+    return _to_torch(sd)
+
+
 def from_jax_variables(variables: Mapping[str, Any], num_encoders: int = 4,
                        num_residual_blocks: int = 2) -> Dict[str, torch.Tensor]:
-    """Flax V2ce3d variables -> the port's state_dict."""
+    """Flax V2ce3d variables -> the port's state_dict: every parameter,
+    BN statistic and spectral-norm vector."""
     params = variables["params"]["unet"]
     stats = variables["batch_stats"]["unet"]
     sn = variables.get("sn", {}).get("unet", {})
     sd: Dict[str, np.ndarray] = {}
 
-    def conv(tkey: str, p: Mapping, s: Optional[Mapping]):
-        if "kernel_bar" in p:
-            sd[f"{tkey}.module.weight_bar"] = _j2t_conv(np.asarray(p["kernel_bar"]))
-            sd[f"{tkey}.module.weight_u"] = np.asarray(s["u"])
-            sd[f"{tkey}.module.weight_v"] = np.asarray(s["v"])
-            if "bias" in p:
-                sd[f"{tkey}.module.bias"] = np.asarray(p["bias"])
-        else:
-            sd[f"{tkey}.weight"] = _j2t_conv(np.asarray(p["kernel"]))
-            if "bias" in p:
-                sd[f"{tkey}.bias"] = np.asarray(p["bias"])
-
-    def bn(tkey: str, p: Mapping, s: Mapping):
-        sd[f"{tkey}.weight"] = np.asarray(p["bn"]["scale"])
-        sd[f"{tkey}.bias"] = np.asarray(p["bn"]["bias"])
-        sd[f"{tkey}.running_mean"] = np.asarray(s["bn"]["mean"])
-        sd[f"{tkey}.running_var"] = np.asarray(s["bn"]["var"])
-        sd[f"{tkey}.num_batches_tracked"] = np.zeros((), np.int64)
-
     def block(tkey: str, name: str):
-        p, s, q = params[name], stats[name], sn.get(name, {})
-        conv(f"{tkey}.conv1", p["conv1"], q.get("conv1"))
-        conv(f"{tkey}.conv2", p["conv2"], q.get("conv2"))
-        bn(f"{tkey}.bn1", p["bn1"], s["bn1"])
-        bn(f"{tkey}.bn2", p["bn2"], s["bn2"])
-        conv(f"{tkey}.downsample.0", p["downsample_conv"], None)
-        bn(f"{tkey}.downsample.1", p["downsample_bn"], s["downsample_bn"])
+        _block_sd(sd, f"{tkey}.", params[name], stats[name], sn.get(name, {}))
 
-    conv("UNet.head.conv3d", params["head"]["conv"], None)
+    _conv_sd(sd, "UNet.head.conv3d", params["head"]["conv"], None)
     for i in range(num_encoders):
         block(f"UNet.encoders.{i}", f"encoder_{i}")
     for i in range(num_residual_blocks):
         block(f"UNet.resblocks.{i}", f"resblock_{i}")
     for i in range(num_encoders):
         block(f"UNet.decoders.{i}", f"decoder_{i}")
-    conv("UNet.pred.conv3d", params["pred"]["conv"], None)
-    return {k: torch.from_numpy(np.array(v, dtype=v.dtype if v.dtype == np.int64
-                                         else np.float32))
-            for k, v in sd.items()}
+    _conv_sd(sd, "UNet.pred.conv3d", params["pred"]["conv"], None)
+    return _to_torch(sd)
+
+
+def discriminator_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax PatchDiscriminator2D/3D params (Conv_0 ... Conv_4) -> the
+    port's discriminator state_dict (convs.0 ... convs.4)."""
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(len(params)):
+        _conv_sd(sd, f"convs.{i}", params[f"Conv_{i}"], None)
+    return _to_torch(sd)
+
+
+def voxel_encoder_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax VoxelEncoder variables -> the port's VoxelEncoder state_dict.
+    A flax DenseGeneral attention projection (d, heads, head_dim) or
+    (heads, head_dim, d) is a torch Linear weight (out, in)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: Dict[str, np.ndarray] = {}
+
+    def dense(tkey: str, q: Mapping, n_in: int = 1):
+        """A kernel (in axes..., out axes...) with n_in input axes."""
+        k = np.asarray(q["kernel"])
+        sd[f"{tkey}.weight"] = np.ascontiguousarray(
+            k.reshape(math.prod(k.shape[:n_in]), -1).T)
+        sd[f"{tkey}.bias"] = np.asarray(q["bias"]).reshape(-1)
+
+    for name in ("down0", "down1", "down2"):
+        _conv_sd(sd, f"{name}_conv", p[f"{name}_conv"], None)
+        sd[f"{name}_bn.weight"] = np.asarray(p[f"{name}_bn"]["scale"])
+        sd[f"{name}_bn.bias"] = np.asarray(p[f"{name}_bn"]["bias"])
+        sd[f"{name}_bn.running_mean"] = np.asarray(s[f"{name}_bn"]["mean"])
+        sd[f"{name}_bn.running_var"] = np.asarray(s[f"{name}_bn"]["var"])
+        sd[f"{name}_bn.num_batches_tracked"] = np.zeros((), np.int64)
+    for i in range(2):
+        q = p[f"encoder_{i}"]
+        for proj in ("query", "key", "value", "out"):
+            dense(f"encoder_{i}.self_attn.{proj}", q["self_attn"][proj],
+                  2 if proj == "out" else 1)
+        for ln in ("norm1", "norm2"):
+            sd[f"encoder_{i}.{ln}.weight"] = np.asarray(q[ln]["scale"])
+            sd[f"encoder_{i}.{ln}.bias"] = np.asarray(q[ln]["bias"])
+        for lin in ("linear1", "linear2"):
+            dense(f"encoder_{i}.{lin}", q[lin])
+    dense("output", p["output"])
+    return _to_torch(sd)
 
 
 def init_weights(model: nn.Module, seed: int = 0) -> None:
