@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`v2ce_toolbox_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare-conv [--sets conv,flow,stage2] TREE [TREE ...]
+    python3 chip_smoke.py --compare-conv [--sets conv,flow,stage2,roofline] TREE [TREE ...]
 
 The second form times the four kernels of the shared conv core (K9 and
 K10 per research-model window, K11 over the probe's `quad` and `quad_s2`
@@ -18,8 +18,10 @@ torch.profiler), so a change in the wrapper's host work can be told from
 one in the kernels; and the stage-2 set (`stage2_times`): K1 'slope' and
 'none' on a 24-frame 260x346 chunk, K2's three main-path calls and its
 grid-width call on it, K3's two main-path calls and K5's EventStream
-flatten, by events and on the device. `--sets` picks some of the three
-sets (conv, flow, stage2; all by default).
+flatten, by events and on the device; and the roofline set
+(`roofline_times`): K13 and K14 at k=64 and 256 on the probe grid, on the
+device. `--sets` picks some of the four sets (conv, flow, stage2,
+roofline; all by default).
 
 Phases, any failure exits non-zero before the result lines:
   1. the card's name and power limit (nvidia-smi);
@@ -121,8 +123,11 @@ Phases, any failure exits non-zero before the result lines:
      kernel, one each; f32: the input transform, the product and the
      output transform; a listing that lacks one is taken again, as in
      3), and the memory it takes (the allocator's peak
-     rise); K13's device time must
-     rise from k=64 to k=256 at a rate under the card's int32 issue rate; (b)
+     rise); K13's and K14's device times must rise from k=64 to k=256, and
+     at each k the ops that touch data (k/2 an element) over the device
+     time must stay under the card's int32 issue rate; the SASS of their
+     rounds loop (nvcc and cuobjdump on `csrc/roofline.cu` alone), counted
+     by instruction a round, with ptxas's registers; (b)
      the probe CLI with all eight probes, counted: every probe kernel must
      launch, and only `wino_ablate [noinv]` may print FAILED;
  13. the v2 sampler core (geometries whose voxel ids the packed key cannot
@@ -170,9 +175,11 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -631,8 +638,6 @@ def port_launches(fn, torch):
     (PyTorch) kernels, device ms of all of them, {kernel: device ms} of the
     port's) in one fn call, from torch.profiler's records of the card's
     activity; None where the profiler records no kernel."""
-    import re
-
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1512,16 +1517,6 @@ def data_phase(torch, np, dev, counted, smi):
     return {"correlation": r}, err
 
 
-def int32_issue_rate(torch):
-    """The card's issue ceiling for one-lane integer ops, in ops/s: SMs x 4
-    schedulers x 32 lanes a clock at the top SM clock nvidia-smi reports
-    (no integer op issues faster; the INT32 pipe alone is half of it)."""
-    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                                "--format=csv,noheader,nounits"], capture_output=True,
-                               text=True, check=True).stdout.split()[0])
-    return torch.cuda.get_device_properties(0).multi_processor_count * 128 * mhz * 1e6
-
-
 class Tee:
     """Writes to stdout and keeps a copy."""
 
@@ -1534,6 +1529,66 @@ class Tee:
 
     def flush(self):
         self.out.flush()
+
+
+def sass_mix():
+    """{kernel: {"registers": n, "sass_per_round": {opcode: count}}} of the
+    op-chain kernels K13 and K14: `csrc/roofline.cu` compiled alone to a
+    cubin (the library's flags, ptxas -v) and disassembled with cuobjdump,
+    counted by `rounds_mix`."""
+    from v2ce_toolbox_tpu_torch.ops import _cuda
+
+    nvcc = _cuda._nvcc()
+    src = os.path.join(_cuda._CSRC, "roofline.cu")
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "roofline.cubin")
+        built = subprocess.run([nvcc, *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-cubin", "-o", cubin,
+                                src], capture_output=True, text=True, check=True)
+        sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
+                              capture_output=True, text=True, check=True).stdout
+    with open(src) as fh:
+        live = [int(n) for n in re.findall(r"constexpr int kLive1[34] = (\d+)", fh.read())]
+    out = rounds_mix(sass, built.stderr, dict(zip(("op_chain", "op_chain_ilp"), live)))
+    for name, mix in out.items():
+        log(f"[probe] {name} SASS a round ({mix['registers']} registers): "
+            + ", ".join(f"{k} {v:g}" for k, v in mix["sass_per_round"].items()))
+    return out
+
+
+def rounds_mix(sass, ptxas_log, live):
+    """Per op-chain kernel of `sass` (cuobjdump -sass): the innermost loop
+    that holds the rounds' XORs (LOP3 with LUT 0x78), its instructions
+    counted by opcode and divided by its rounds (one XOR a chain a round,
+    live[kernel] chains), and the registers from `ptxas_log`."""
+    regs = dict(re.findall(r"Compiling entry function '(\S+)'.*?Used (\d+) registers",
+                           ptxas_log, re.S))
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        mangled = fn.split("\n", 1)[0].strip()
+        if "op_chain_kernel" not in mangled:
+            continue
+        name = "op_chain" if "ILi1E" in mangled else "op_chain_ilp"
+        ins = [(int(a, 16), op) for a, op in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", fn)]
+        loops = []
+        for a, op in ins:
+            m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < a:
+                body = [o for b, o in ins if int(m.group(1), 16) <= b <= a]
+                if any(o.startswith("LOP3") and "0x78" in o for o in body):
+                    loops.append(body)
+        body = min(loops, key=len)
+        rounds = sum(1 for o in body if o.startswith("LOP3") and "0x78" in o) / live[name]
+        ops = {}
+        for o in body:
+            op = re.sub(r"^@!?U?P\w+\s+", "", o).split()[0]
+            ops[op] = ops.get(op, 0) + 1
+        out[name] = {"registers": int(regs.get(mangled, 0)), "sass_loop_rounds": rounds,
+                     "sass_per_round": {k: v / rounds for k, v in
+                                        sorted(ops.items(), key=lambda kv: -kv[1])}}
+    if set(out) != {"op_chain", "op_chain_ilp"}:
+        raise AssertionError(f"the rounds loop of K13 and K14 not found in the SASS: {set(out)}")
+    return out
 
 
 def probe_phase(torch, np, dev, counted, smi):
@@ -1744,14 +1799,17 @@ def probe_phase(torch, np, dev, counted, smi):
     # K13-K16 at the roofline's grid: (144, 11, 128, 128) int32. The op
     # chains' bound counts the ops that touch data, an XOR and an add a round
     # and chain (k/2 an element: the rolls are a change of position and the
-    # lane test a constant of it), at the card's int32 issue rate; their
-    # rate, as the JAX probe's, counts the TPU's four vector ops a round (k
-    # el-ops an element), from the device times at two k
+    # lane test a constant of it), at the card's int32 issue rate; the gate
+    # holds the same count against the same rate at each k (no kernel issues
+    # them faster) and wants the time to rise with k. The slope between the
+    # two k is printed, not gated: at k=64 the reads bound the time. The JAX
+    # probe's el-op rate (k an element, the TPU's four vector ops a round)
+    # is printed beside it
     sc, n_chunks = 16384 // 128, -(-(2 * H * W) // 16384)
     xr = torch.from_numpy(rng.randint(0, 1 << 30, (144, n_chunks, sc, 128))
                           .astype(np.int32)).to(dev)
     total_el = xr.numel()
-    issue = int32_issue_rate(torch)
+    issue = perf_probe.int32_issue_rate(dev)
     rates = {}
     for name, fn, plain in [("op_chain", roofline.op_chain, roofline._op_chain_torch),
                             ("op_chain_ilp", roofline.op_chain_ilp,
@@ -1772,15 +1830,22 @@ def probe_phase(torch, np, dev, counted, smi):
                 log(f"[probe] {name} k={kk_}: identical; {ts[kk_]:.4f} ms on the device, bound "
                     f"{bound:.4f} ms ({by})")
         rate = (K_HI - K_LO) * total_el / ((ts[K_HI] - ts[K_LO]) / 1e3)
+        data = {k: k // 2 * total_el / (t / 1e3) for k, t in ts.items()}
         rates[name] = rate
         results[name].update(k_lo_device_ms=ts[K_LO], el_ops_per_s=rate,
-                             issue_el_ops_per_s=issue)
+                             data_ops_per_s=data[K_HI], data_ops_per_s_k_lo=data[K_LO],
+                             data_ops_slope_per_s=rate / 2, issue_ops_per_s=issue)
         log(f"[probe] {name}: on the device k={K_LO} {ts[K_LO]:.4f} ms, k={K_HI} "
-            f"{ts[K_HI]:.4f} ms -> {rate / 1e12:.3f} T el-ops/s, {rate / issue:.1%} of the int32 "
-            f"issue rate {issue / 1e12:.2f} T/s [{smi}]")
-        if name == "op_chain" and not (ts[K_HI] > ts[K_LO] and rate < issue):
-            raise AssertionError(f"{name}: the time does not rise with k at a rate under the "
-                                 f"card's int32 issue rate ({ts}, {rate:.3e} ops/s)")
+            f"{ts[K_HI]:.4f} ms -> {rate / 1e12:.3f} T el-ops/s (JAX count); data ops (k/2 an "
+            f"element) {data[K_HI] / 1e12:.3f} T/s at k={K_HI} ({data[K_HI] / issue:.1%} of the "
+            f"int32 issue rate {issue / 1e12:.2f} T/s), {data[K_LO] / issue:.1%} at k={K_LO}, "
+            f"{rate / 2 / issue:.1%} from the slope [{smi}]")
+        if not (ts[K_HI] > ts[K_LO] and max(data.values()) < issue):
+            raise AssertionError(f"{name}: the time does not rise with k, or the data ops "
+                                 f"run faster than the card's int32 issue rate ({ts}, "
+                                 f"{max(data.values()):.3e} > {issue:.3e} ops/s)")
+    for name, mix in sass_mix().items():
+        results[name].update(mix)
     copy_bound = 2 * nbytes(xr) / HBM_BYTES_PER_S * 1e3
     for name, fn in [("stream_copy", roofline.stream_copy),
                      ("stream_copy_row", roofline.stream_copy_row)]:
@@ -2101,7 +2166,10 @@ def main():
                         "library_ms": r.get("library_ms"),
                         **{k: r[k] for k in ("device_ms", "plain_device_ms", "k",
                                              "k_lo_device_ms", "el_ops_per_s",
-                                             "issue_el_ops_per_s", "bytes_per_s",
+                                             "data_ops_per_s", "data_ops_per_s_k_lo",
+                                             "data_ops_slope_per_s", "issue_ops_per_s",
+                                             "registers", "sass_loop_rounds",
+                                             "sass_per_round", "bytes_per_s",
                                              "live_steps", "live_steps_s122",
                                              "f32_rel_err_vs_f64", "calls",
                                              "library_device_ms", "library_bytes_per_s",
@@ -2114,7 +2182,7 @@ def main():
                                              "count": torch.cuda.device_count()}}))
 
 
-COMPARE_SETS = ("conv", "flow", "stage2")
+COMPARE_SETS = ("conv", "flow", "stage2", "roofline")
 
 
 def conv_times(torch, np, dev, n=N_TIMED, sets=COMPARE_SETS):
@@ -2128,8 +2196,9 @@ def conv_times(torch, np, dev, n=N_TIMED, sets=COMPARE_SETS):
     `wino_pallas` shapes, and those K12 calls on the device alone
     (`conv3d_wino4[<dtype>] device`: the kernels of a call by
     torch.profiler, median of N_DEVICE); before them `stage2_times` and
-    `flow_times`. `sets` picks among the stage-2 ("stage2"), flow ("flow")
-    and conv ("conv") timings. Only the wrappers' public signatures are
+    `flow_times` and `roofline_times`. `sets` picks among the stage-2
+    ("stage2"), flow ("flow"), roofline ("roofline") and conv ("conv")
+    timings. Only the wrappers' public signatures are
     used, so any version of the package can be timed. Returns {label:
     ms}."""
     from v2ce_toolbox_tpu_torch.config import ModelConfig
@@ -2143,6 +2212,8 @@ def conv_times(torch, np, dev, n=N_TIMED, sets=COMPARE_SETS):
         times.update(stage2_times(torch, np, dev, n))
     if "flow" in sets:
         times.update(flow_times(torch, np, dev, n))
+    if "roofline" in sets:
+        times.update(roofline_times(torch, np, dev))
     if "conv" not in sets:
         return times
 
@@ -2337,6 +2408,24 @@ def flow_times(torch, np, dev, n=N_TIMED):
         times[f"{label} device"] = graph_ms(lambda: fn(x), torch)
         times[f"{label} clone device"] = graph_ms(x.clone, torch)
     del vox, xr
+    torch.cuda.empty_cache()
+    return times
+
+
+def roofline_times(torch, np, dev):
+    """For `--compare-conv`: K13 op_chain and K14 op_chain_ilp at the
+    roofline's grid (144 rows of 11 chunks of 128 x 128 int32) and k = K_LO
+    and K_HI, on the device (CUDA-graph replays). Returns {label: ms}."""
+    from v2ce_toolbox_tpu_torch.ops import roofline
+
+    rng = np.random.RandomState(0)
+    xr = torch.from_numpy(rng.randint(0, 1 << 30, (144, -(-(2 * H * W) // 16384), 128, 128))
+                          .astype(np.int32)).to(dev)
+    times = {}
+    for name, fn in (("op_chain", roofline.op_chain), ("op_chain_ilp", roofline.op_chain_ilp)):
+        for k in (K_LO, K_HI):
+            times[f"{name}[k={k}] device"] = graph_ms(lambda: fn(xr, k), torch)
+    del xr
     torch.cuda.empty_cache()
     return times
 

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from v2ce_toolbox_tpu.ops import compact_pallas as jax_compact
 from v2ce_toolbox_tpu_torch.ops import compact
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 INVALID = compact.INVALID
 

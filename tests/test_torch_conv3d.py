@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from v2ce_toolbox_tpu.ops.conv3d_pallas import conv3d_3x3x3 as jax_conv3d
 from v2ce_toolbox_tpu_torch.ops import conv3d
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _mk(shape, co, seed):

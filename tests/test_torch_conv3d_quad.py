@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from v2ce_toolbox_tpu.ops import conv3d_quad as jax_quad
 from v2ce_toolbox_tpu_torch.ops import conv3d_quad
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 REL_TOL = 1e-5
 

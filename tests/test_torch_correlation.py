@@ -22,6 +22,7 @@ from v2ce_toolbox_tpu_torch.models.fastflownet import (CORR_INDEX, DECODER_IN, F
 from v2ce_toolbox_tpu_torch.ops.correlation import (MAX_STAGES, MAX_SMEM, MAX_SUMS,
                                                     MAX_THREADS, MIN_ITEMS, _correlation_torch,
                                                     correlation, plan)
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _features(seed, c, n=2, h=12, w=20):

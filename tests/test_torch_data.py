@@ -23,6 +23,7 @@ from v2ce_toolbox_tpu_torch.data import dummy_data_gen, event_pack_dataset, load
 from v2ce_toolbox_tpu_torch.events import EVENT_DTYPE
 from v2ce_toolbox_tpu_torch.io import native
 from v2ce_toolbox_tpu_torch.utils import v2e
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 H, W = 24, 30
 

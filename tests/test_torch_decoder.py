@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from v2ce_toolbox_tpu.ops.decoder_pallas import fused_up_concat_conv as jax_fused
 from v2ce_toolbox_tpu_torch.ops import decoder
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _mk(hc, wc, hf, wf, cu, cs, co, seed=0, l=4, proj=False):

@@ -17,6 +17,7 @@ from v2ce_toolbox_tpu.config import SamplerConfig as JaxSamplerConfig
 from v2ce_toolbox_tpu.ops.ldati import sample_events as jax_sample_events
 from v2ce_toolbox_tpu_torch.config import SamplerConfig
 from v2ce_toolbox_tpu_torch.ops import ldati
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _valid_ts(t_us, count):

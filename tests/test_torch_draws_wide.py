@@ -20,6 +20,7 @@ from v2ce_toolbox_tpu_torch.config import SamplerConfig
 from v2ce_toolbox_tpu_torch.ops import ldati
 
 from tests.test_torch_draws import _valid_ts, ks_statistic
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("strategy", ["slope", "random"])

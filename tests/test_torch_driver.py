@@ -14,6 +14,7 @@ These JAX calls run the Pallas kernels in interpret mode and compile for
 tens of seconds, so they live in this file alone and each runs once.
 """
 
+import functools
 from unittest import mock
 
 import numpy as np
@@ -30,6 +31,7 @@ from v2ce_toolbox_tpu.pipeline.driver import (
 from v2ce_toolbox_tpu_torch.config import SamplerConfig
 from v2ce_toolbox_tpu_torch.ops.bitpack import pack_bits, unpack_bits
 from v2ce_toolbox_tpu_torch.pipeline import driver as port_driver
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 F, P, C = 4, 2, 10
 CASES = {
@@ -54,7 +56,13 @@ def _jax_draw(key):
 
 @pytest.fixture(scope="module", params=sorted(CASES))
 def streams(request):
-    case = CASES[request.param]
+    return _streams(request.param)
+
+
+@functools.cache
+def _streams(name):
+    """Both sides' wire streams for one case, once a process."""
+    case = CASES[name]
     h, w = case["hw"]
     rng = np.random.RandomState(11)
     v = ((rng.rand(F, P, C, h, w) < case["density"])
@@ -70,7 +78,7 @@ def streams(request):
             torch.from_numpy(v), _jax_draw(key), torch.from_numpy(offsets), F,
             SamplerConfig(**case["caps"]), 30, skip_lead=case["skip"], width=w)
     bits_used = [c.kwargs["delta_bits"] for c in spy.call_args_list]
-    return request.param, ref, got, bits_used
+    return name, ref, got, bits_used
 
 
 def test_fused_fetch_matches_jax(streams):

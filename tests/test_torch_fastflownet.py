@@ -7,6 +7,8 @@ full-width net on a (2, 64, 128) pair in both modes, and
 within 1e-4 of the largest |output| (the two frameworks sum the convs in
 other orders)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -18,13 +20,20 @@ from tests.torch_research import fill_variables
 from v2ce_toolbox_tpu.models import fastflownet as jffn
 from v2ce_toolbox_tpu_torch.models import fastflownet as tffn
 from v2ce_toolbox_tpu_torch.utils.weights import fastflownet_from_jax_variables
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 
 
 @pytest.fixture(scope="module")
 def weights():
-    """(flax variables, the port's state_dict), one draw for the module."""
+    return _weights()
+
+
+@functools.cache
+def _weights():
+    """(flax variables, the port's state_dict), one draw a process: the
+    tests only read them (`load_state_dict` copies)."""
     variables = fill_variables(
         lambda: jffn.FastFlowNet().init(jax.random.key(0), jnp.zeros((1, 64, 64, 6))), 0)
     return variables, fastflownet_from_jax_variables(variables)

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from v2ce_toolbox_tpu.ops import compact_pallas, gen_pallas
 from v2ce_toolbox_tpu_torch.ops import gen
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _grid(seed, f, h, w, density, scale):

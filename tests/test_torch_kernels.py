@@ -829,9 +829,13 @@ def test_conv3d_wino4_nodot_identical_on_card(shape, co, dtype):
     assert torch.equal(got, conv3d_wino4._conv3d_wino4_torch(x, k, ablate="nodot"))
 
 
+# a K13 thread carries 32 (chunk, sublane) positions, a K14 thread 16 (x 4
+# chains): shapes whose position count neither divides, one chunk, one
+# sublane; k = 0 (no round), 4 (one K13 round, none of K14's) and 18
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("shape", [(144, 11, 128, 128), (2, 3, 8, 128)])
-@pytest.mark.parametrize("k", [64, 256, 16])
+@pytest.mark.parametrize("shape", [(144, 11, 128, 128), (2, 3, 8, 128), (3, 5, 8, 128),
+                                   (1, 1, 1, 128), (2, 1, 8, 128), (5, 7, 3, 128)])
+@pytest.mark.parametrize("k", [64, 256, 16, 0, 4, 18])
 def test_roofline_probes_equal_twins_on_card(shape, k):
     dev = _cuda_or_skip()
     x = torch.from_numpy(np.random.RandomState(k).randint(0, 1 << 30, shape)

@@ -20,6 +20,7 @@ from v2ce_toolbox_tpu.ops.ldati import sample_events
 from v2ce_toolbox_tpu_torch.config import SamplerConfig
 from v2ce_toolbox_tpu_torch.ops import ldati
 from v2ce_toolbox_tpu_torch.ops.compact import INVALID
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_sample_rows_matches_jax():

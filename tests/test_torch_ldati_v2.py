@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from v2ce_toolbox_tpu.ops import ldati as jl
 from v2ce_toolbox_tpu_torch.config import SamplerConfig
 from v2ce_toolbox_tpu_torch.ops import ldati
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 FIELDS = ("t_us", "x", "y", "p", "count", "dropped")
 

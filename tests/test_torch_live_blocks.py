@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from v2ce_toolbox_tpu_torch.ops import conv3d, conv3d_quad, decoder
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _scan(kt, bn, bk):

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from v2ce_toolbox_tpu_torch.ops import _cuda, compact
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 INVALID = compact.INVALID
 

@@ -23,6 +23,7 @@ from v2ce_toolbox_tpu_torch.models import V2ce3d
 from v2ce_toolbox_tpu_torch.pipeline.infer import center_crop
 from v2ce_toolbox_tpu_torch.pipeline.preprocess import normalize_pairs
 from v2ce_toolbox_tpu_torch.utils.weights import from_jax_variables, init_weights
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = dict(base_num_channels=4, num_encoders=2, num_residual_blocks=1)
 

@@ -20,6 +20,7 @@ from v2ce_toolbox_tpu.ops.ldati import sample_events
 from v2ce_toolbox_tpu_torch.config import SamplerConfig
 from v2ce_toolbox_tpu_torch.ops import ldati
 from v2ce_toolbox_tpu_torch.ops.compact import INVALID
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 CAPS = dict(event_capacity=1 << 12, cap_bin=1 << 9, multi_cap=512, sort_cap=1 << 9)
 

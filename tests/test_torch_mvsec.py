@@ -23,6 +23,7 @@ from v2ce_toolbox_tpu.data import mvsec as jmvsec
 from v2ce_toolbox_tpu.models import fastflownet as jffn
 from v2ce_toolbox_tpu_torch.data import mvsec
 from v2ce_toolbox_tpu_torch.utils.weights import fastflownet_from_jax_variables
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 N_FRAMES, H, W, N_EVENTS = 33, 32, 40, 500
 FLOW_TOL = 1e-4

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from v2ce_toolbox_tpu_torch.tools import perf_probe
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

@@ -25,6 +25,7 @@ from v2ce_toolbox_tpu_torch.ops import ldati
 from v2ce_toolbox_tpu_torch.ops.compact import INVALID
 
 from tests.test_torch_modes import CAPS, assert_streams_equal, jax_draw, jax_kwargs, voxels
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("mode", [dict(pooling_type="avg"), dict(pooling_type="weighted"),

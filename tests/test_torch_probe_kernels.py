@@ -17,6 +17,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from v2ce_toolbox_tpu.ops.barrier import layout_barrier as jax_layout_barrier
 from v2ce_toolbox_tpu_torch.ops import barrier, roofline
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 R, N_CHUNKS, SC, LANES = 2, 3, 8, 128
 
@@ -97,14 +98,15 @@ def _copy_call(row_blocks, x):
     )(jnp.asarray(x))
 
 
-@pytest.mark.parametrize("k", [8, 16])
+# k not a multiple of 4 (K13) or 16 (K14): the rounds are k // 4 and k // 16
+@pytest.mark.parametrize("k", [8, 16, 6, 18])
 def test_op_chain_twin_matches_pallas(k):
     x = _x(k)
     want = np.asarray(_chain_call(_op_kernel(k), x))
     np.testing.assert_array_equal(roofline.op_chain(torch.from_numpy(x), k).numpy(), want)
 
 
-@pytest.mark.parametrize("k", [8, 16, 32])
+@pytest.mark.parametrize("k", [8, 16, 32, 6, 18])
 def test_op_chain_ilp_twin_matches_pallas(k):
     x = _x(k + 1)
     want = np.asarray(_chain_call(_ilp_kernel(k), x))

@@ -7,6 +7,8 @@ products in other orders. The twins' calls must be exactly the layers the
 JAX package sends to its kernels. Also the decoder block at Co = 64, where
 K10 runs without the fused projection."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,12 @@ from v2ce_toolbox_tpu_torch.utils.weights import _j2t_conv
 
 @pytest.fixture(scope="module")
 def setup():
+    return _setup()
+
+
+@functools.cache
+def _setup():
+    """The inputs and the JAX model's output, once a process."""
     variables, x = tr.narrow_variables(), tr.narrow_input()
     return variables, x, tr.jax_forward(variables, x, np.float32)
 

@@ -19,6 +19,7 @@ from v2ce_toolbox_tpu_torch.ops import samplers
 from v2ce_toolbox_tpu_torch.ops.ldati import make_draw
 
 from tests.test_torch_ldati_v2 import assert_streams_equal, frame_draw, sparse_voxels
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = dict(capacity=1 << 13, max_events_per_voxel=8)
 

@@ -16,6 +16,7 @@ from v2ce_toolbox_tpu_torch.events import EVENT_DTYPE
 from v2ce_toolbox_tpu_torch.ops import ldati
 
 from tests.test_torch_samplers import sampler_draw
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _events(n, h, w, t_max=100000, seed=0):

@@ -9,6 +9,7 @@ sparse wire format) on a sparse one with skip_lead. The EventStream
 fields and the decoded streams must be byte-identical.
 """
 
+import functools
 import types
 from unittest import mock
 
@@ -31,6 +32,7 @@ from v2ce_toolbox_tpu_torch.ops import ldati
 from v2ce_toolbox_tpu_torch.pipeline import driver
 
 from tests.test_torch_modes import assert_streams_equal, jax_draw
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 F = 4
 CASES = {
@@ -54,7 +56,13 @@ def _voxels(case):
 
 @pytest.fixture(scope="module", params=sorted(CASES))
 def chunk(request):
-    case = CASES[request.param]
+    return _chunk(request.param)
+
+
+@functools.cache
+def _chunk(name):
+    """Both sides' EventStreams for one case, once a process."""
+    case = CASES[name]
     v = _voxels(case)
     jcfg = JaxSamplerConfig(**case["sampler"])
     key = jax.random.key(5)
@@ -62,7 +70,7 @@ def chunk(request):
     ref = jax_sample_events(jnp.asarray(v), ckey, **jcfg.sample_kwargs(fps=30))
     cfg = SamplerConfig(**case["sampler"])
     got = ldati.sample_events(torch.from_numpy(v), jax_draw(ckey), cfg)
-    return request.param, case, v, key, jcfg, cfg, ref, got
+    return name, case, v, key, jcfg, cfg, ref, got
 
 
 def test_sample_events_matches_jax(chunk):

@@ -15,18 +15,18 @@ from v2ce_toolbox_tpu_torch.config import ModelConfig, PipelineConfig
 from v2ce_toolbox_tpu_torch.events import EVENT_DTYPE
 from v2ce_toolbox_tpu_torch.pipeline.driver import V2cePipeline
 
+from tests.torch_budget import cpu_budget
+
 SMALL = dict(base_num_channels=4, num_encoders=2, num_residual_blocks=1)
 H, W, N = 48, 64, 21
 
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
-    """Stage 1 on one CPU thread: under pytest-xdist every worker's OpenMP
-    pool would claim all the cores, and the oversubscribed pools spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    """torch on one CPU thread and the worker at a lower priority for a
+    module (`tests/torch_budget.py`)."""
+    with cpu_budget(1):
+        yield
 
 
 @pytest.fixture(scope="module")

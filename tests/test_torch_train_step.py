@@ -16,6 +16,8 @@ moments, which hold each tensor within 1e-4 of its largest element (+
 1e-6 of the tensor's largest element from an f64 run of the port, so
 the small elements of a tensor differ by more than 1e-4 of themselves."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -88,8 +90,15 @@ def _carry(js, ts):
 
 @pytest.fixture(scope="module")
 def run():
+    return _run()
+
+
+@functools.cache
+def _run():
     """Both sides' two steps, each port step from the JAX step's starting
-    state, and one eval on the JAX state after them."""
+    state, and one eval on the JAX state after them; once a process (numpy
+    arrays and floats), so a worker that comes back to this module after
+    another one does not run the JAX steps again."""
     jmodel = JaxV2ce3d(config=JaxModelConfig(**TINY))
     jdisc = jgan.PatchDiscriminator2D()
     x0 = jnp.zeros((1, L, H, W, 2), jnp.float32)

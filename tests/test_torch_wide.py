@@ -27,6 +27,7 @@ from v2ce_toolbox_tpu_torch.ops import ldati
 from v2ce_toolbox_tpu_torch.pipeline import driver
 
 from tests.test_torch_modes import assert_streams_equal, jax_draw
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 F, H, W = 2, 4, 600
 CAPS = dict(event_capacity=1 << 13, cap_bin=1 << 11, multi_cap=512, sort_cap=1 << 11)

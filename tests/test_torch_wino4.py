@@ -23,6 +23,7 @@ import jax.numpy as jnp
 
 from v2ce_toolbox_tpu.ops import winograd_pallas as jax_wino
 from v2ce_toolbox_tpu_torch.ops import conv3d_wino4
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPE, CO = (1, 8, 9, 7, 16), 8
 

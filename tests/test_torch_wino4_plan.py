@@ -28,6 +28,7 @@ import jax.numpy as jnp
 from v2ce_toolbox_tpu.ops import winograd_pallas as jax_wino
 from v2ce_toolbox_tpu_torch.ops import conv3d_wino4
 from v2ce_toolbox_tpu_torch.tools.perf_probe import WINO_SHAPES
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 WINO_REL_TOL = 1e-5
 

@@ -15,6 +15,7 @@ from v2ce_toolbox_tpu.events import EventStream as JaxEventStream
 from v2ce_toolbox_tpu.pipeline import driver as jd
 from v2ce_toolbox_tpu_torch.events import EventStream
 from v2ce_toolbox_tpu_torch.pipeline import driver
+from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 CAP = 128
 

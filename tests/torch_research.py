@@ -5,6 +5,7 @@ runs), the narrow research model on both sides with the same weights, and
 the calls each side makes to its K9 / K10 entry."""
 
 import contextlib
+import functools
 import math
 from unittest import mock
 
@@ -24,6 +25,8 @@ from v2ce_toolbox_tpu_torch.models import V2ce3d
 from v2ce_toolbox_tpu_torch.ops import conv3d, decoder
 from v2ce_toolbox_tpu_torch.utils.weights import from_jax_variables
 
+from tests.torch_budget import cpu_budget
+
 # base 8, 2 encoders, 1 resblock: K9 takes every conv with cin >= 16
 NARROW = dict(base_num_channels=8, num_encoders=2, num_residual_blocks=1)
 RESEARCH = dict(conv_impl="pallas", subpixel_decoder=True, subpixel_impl="pallas",
@@ -34,13 +37,10 @@ X_SHAPE = (1, 4, 18, 26, 2)
 
 @pytest.fixture(scope="module")
 def two_torch_threads():
-    """torch on two threads for a module: under pytest-xdist every
-    worker's OpenMP pool would claim all the cores, and the oversubscribed
-    pools spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+    """torch on two threads and the worker at a lower priority for a
+    module (`tests/torch_budget.py`)."""
+    with cpu_budget(2):
+        yield
 
 
 def fill_variables(init_fn, seed):
@@ -65,7 +65,10 @@ def fill_variables(init_fn, seed):
     return traverse_util.unflatten_dict(flat)
 
 
+@functools.cache
 def narrow_variables(seed=0):
+    """The narrow model's flax variables (numpy), once a process: callers
+    only read them."""
     x = jnp.zeros(X_SHAPE, jnp.float32)
     return fill_variables(
         lambda: JaxV2ce3d(config=JaxModelConfig(**NARROW)).init(jax.random.key(0), x,

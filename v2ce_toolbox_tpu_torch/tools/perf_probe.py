@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import statistics
+import subprocess
 import sys
 import time
 
@@ -352,6 +353,34 @@ def probe_window_lb(dev, seq_len=16, h=260, w=346):
     return {"window_s": dt}
 
 
+def int32_issue_rate(dev) -> float | None:
+    """The card's issue ceiling for one-lane integer ops, in ops/s: SMs x 4
+    schedulers x 32 lanes a clock at the top SM clock nvidia-smi reports
+    (one warp instruction a scheduler a clock; the ALU pipe, which takes
+    LOP3, and the FMA pipe, which takes IMAD, each issue half of it). None
+    off the card."""
+    if torch.device(dev).type != "cuda":
+        return None
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True).stdout.split()[0])
+    return torch.cuda.get_device_properties(dev).multi_processor_count * 128 * mhz * 1e6
+
+
+def _data_rates(name, el_rate, t_hi, k_hi, total_el, issue):
+    """The op chains' ops that touch data (k/2 an element, an XOR and an add
+    a round and chain, as `bound_ms` counts them; the JAX probe's el-ops
+    count k), from the slope between the two k and at k_hi alone, beside
+    their share of the card's issue rate."""
+    data_slope, data_hi = el_rate / 2, k_hi // 2 * total_el / t_hi
+    share = ("issue rate not measured off the card" if issue is None else
+             f"{data_slope / issue:.1%} and {data_hi / issue:.1%} of the int32 issue rate "
+             f"{issue / 1e12:.2f} T/s")
+    print(f"  {name}: data ops (k/2 an element) {data_slope / 1e12:.2f} T/s from the slope, "
+          f"{data_hi / 1e12:.2f} T/s at k={k_hi}; {share}", flush=True)
+    return data_slope, data_hi
+
+
 def probe_stage2_roofline(dev, r=144, chunk=16384, seg=2 * 260 * 346, ks=(64, 256),
                           gen_shape=(16, 2, 10, 260, 346)):
     """Stage-2 roofline on the card: the vector-op ceiling (K13 serial
@@ -383,19 +412,24 @@ def probe_stage2_roofline(dev, r=144, chunk=16384, seg=2 * 260 * 346, ks=(64, 25
     t_lo = timed_loop(lambda a: reduce_tile(op_chain(a[0], k_lo)), (x,), graph=True)
     t_hi = timed_loop(lambda a: reduce_tile(op_chain(a[0], k_hi)), (x,), graph=True)
     op_rate = (k_hi - k_lo) * total_el / (t_hi - t_lo)
-    res.update(op_t=(t_lo, t_hi), op_rate=op_rate)
     print(f"synthetic vector-op kernel (serial chain): k={k_lo} {t_lo*1e3:.2f} ms, "
           f"k={k_hi} {t_hi*1e3:.2f} ms -> sustained {op_rate/1e12:.2f} T el-ops/s",
           flush=True)
+    issue = int32_issue_rate(dev)
+    op_data, op_data_hi = _data_rates("serial chain", op_rate, t_hi, k_hi, total_el, issue)
+    res.update(op_t=(t_lo, t_hi), op_rate=op_rate, op_data_rate=op_data,
+               op_data_rate_hi=op_data_hi, issue_rate=issue)
 
     # 1b. ILP ceiling: 4 independent chains interleaved
     ti_lo = timed_loop(lambda a: reduce_tile(op_chain_ilp(a[0], k_lo)), (x,), graph=True)
     ti_hi = timed_loop(lambda a: reduce_tile(op_chain_ilp(a[0], k_hi)), (x,), graph=True)
     ilp_rate = (k_hi - k_lo) * total_el / (ti_hi - ti_lo)
-    res.update(ilp_t=(ti_lo, ti_hi), ilp_rate=ilp_rate)
     print(f"synthetic vector-op kernel (4 indep chains): k={k_lo} {ti_lo*1e3:.2f} ms, "
           f"k={k_hi} {ti_hi*1e3:.2f} ms -> sustained {ilp_rate/1e12:.2f} T el-ops/s "
           f"({ilp_rate/op_rate:.2f}x serial)", flush=True)
+    ilp_data, ilp_data_hi = _data_rates("4 chains", ilp_rate, ti_hi, k_hi, total_el, issue)
+    res.update(ilp_t=(ti_lo, ti_hi), ilp_rate=ilp_rate, ilp_data_rate=ilp_data,
+               ilp_data_rate_hi=ilp_data_hi)
 
     # 2. HBM stream ceiling (read + write), chunk blocks then row blocks
     def reduce_copy(out):
