@@ -18,7 +18,9 @@ torch.profiler), so a change in the wrapper's host work can be told from
 one in the kernels; and the stage-2 set (`stage2_times`): K1 'slope' and
 'none' on a 24-frame 260x346 chunk, K2's three main-path calls and its
 grid-width call on it, K3's two main-path calls and K5's EventStream
-flatten, by events and on the device; and the roofline set
+flatten, by events and on the device, and K2w at the probes' shapes
+(`window_times`, with torch.profiler's split of its payload call by
+activity); and the roofline set
 (`roofline_times`): K13 and K14 at k=64 and 256 on the probe grid, on the
 device. `--sets` picks some of the four sets (conv, flow, stage2,
 roofline; all by default).
@@ -110,7 +112,9 @@ Phases, any failure exits non-zero before the result lines:
      the twin's own distance from it; bf16: of the twin; the 'nodot'
      ablation identical), K2w
      compact_rows(algo="window"), K7 layout_barrier and K13-K16
-     identical; each with kernel, twin and
+     identical (K2w's calls there, with and without the payload, each one
+     kernel after one memset by torch.profiler, no pad or copy; its
+     payload-sector floor logged beside its bound); each with kernel, twin and
      library ms (cuDNN F.conv3d for K11 and K12, clone() for the copies)
      and its bound (K12's from its Winograd FLOPs), the live steps of
      fold_s122's weights against the direct conv for the strided K11
@@ -230,6 +234,7 @@ CORR_REL_TOL, FLOW_REL_TOL = 1e-5, 1e-4
 # two dtypes), the probe CLI's probes and the roofline's op counts
 N_PROBE_TIMED = 7
 K_LO, K_HI = 64, 256
+PROBE_ROWS = (144, 2048 * 89)              # the compaction probes' (rows, keys)
 # phase 14, training: the card-vs-CPU step's (B, L, H, W), and train.main's
 # run at the main path's 260x346 (40 packets: 32 train, 4 val, 4 test).
 # Card against CPU after one step: each log term within TRAIN_LOG_REL_TOL
@@ -568,28 +573,50 @@ def launch_listing(torch, cases, results):
         name = label.split("[")[0]
         if name not in limits:
             continue
-        per_call = []
-        for a, k in cl:
-            for attempt in range(1, LISTING_TRIES + 1):
-                acts = device_activities(lambda: kernel(*a, **k), torch)
-                kernels = [x for x in acts if not x.startswith(("Memset", "Memcpy"))]
-                memsets = [x for x in acts if x.startswith("Memset")]
-                log(f"[launch listing] {label} {tuple(a[0].shape)}: {len(kernels)} kernel(s) "
-                    f"{[x.replace('(anonymous namespace)::', '').split('(')[0] for x in kernels]}"
-                    f", {len(memsets)} memset(s), "
-                    f"{len(acts) - len(kernels) - len(memsets)} copies"
-                    + (f" (listing {attempt})" if attempt > 1 else ""))
-                if (len(kernels) > limits[name] or len(memsets) > 1
-                        or len(acts) != len(kernels) + len(memsets)):
-                    raise AssertionError(f"{label} made {acts}: more than {limits[name]} "
-                                         "kernel(s) after one memset")
-                if kernels and memsets:
-                    break
-            else:
-                raise AssertionError(f"torch.profiler recorded {acts} in {label} "
-                                     f"{LISTING_TRIES} times: no kernel after one memset")
-            per_call.append(len(kernels))
-        results[label]["kernel_launches_per_call"] = per_call
+        results[label]["kernel_launches_per_call"] = [
+            listed_call(f"{label} {tuple(a[0].shape)}", lambda: kernel(*a, **k), limits[name],
+                        torch) for a, k in cl]
+
+
+def listed_call(label, fn, limit, torch):
+    """The number of kernels the card ran in one fn call, which must be at
+    most `limit` kernels after one memset, with no other kernel, memset or
+    copy (a pad before the kernel would be one); a listing that lacks its
+    memset or its kernel is taken again (see launch_listing)."""
+    for attempt in range(1, LISTING_TRIES + 1):
+        acts = device_activities(fn, torch)
+        kernels = [x for x in acts if not x.startswith(("Memset", "Memcpy"))]
+        memsets = [x for x in acts if x.startswith("Memset")]
+        log(f"[launch listing] {label}: {len(kernels)} kernel(s) "
+            f"{[x.replace('(anonymous namespace)::', '').split('(')[0] for x in kernels]}"
+            f", {len(memsets)} memset(s), "
+            f"{len(acts) - len(kernels) - len(memsets)} copies"
+            + (f" (listing {attempt})" if attempt > 1 else ""))
+        if (len(kernels) > limit or len(memsets) > 1
+                or len(acts) != len(kernels) + len(memsets)):
+            raise AssertionError(f"{label} made {acts}: more than {limit} "
+                                 "kernel(s) after one memset")
+        if kernels and memsets:
+            return len(kernels)
+    raise AssertionError(f"torch.profiler recorded {acts} in {label} "
+                         f"{LISTING_TRIES} times: no kernel after one memset")
+
+
+def sector_floor(keys, pays, out, capp):
+    """(ms, bytes) of the least traffic a gather of the kept payload words
+    can make, at the card's memory rate: every key read, every 32-byte
+    sector of the payload that holds a kept word read whole, and the
+    outputs written once. `bound_ms` counts the kept payload words alone."""
+    import torch
+
+    valid = keys != 2 ** 31 - 1
+    kept = valid & (torch.cumsum(valid, dim=1, dtype=torch.int32) <= capp)
+    idx = torch.nonzero(kept.reshape(-1), as_tuple=True)[0]
+    moved = nbytes(keys) + nbytes(out)
+    for p in pays:
+        sectors = torch.unique((p.data_ptr() + 4 * idx) // 32).numel()
+        moved += 32 * sectors
+    return moved / HBM_BYTES_PER_S * 1e3, moved
 
 
 def gen_compact_bytes(v, kw):
@@ -1750,11 +1777,12 @@ def probe_phase(torch, np, dev, counted, smi):
     results["conv3d_wino4[bfloat16]"]["calls"] = wino_calls
     torch.cuda.empty_cache()
 
-    def add_exact(name, label, kernel, plain, library, bound, by="bytes", **extra):
+    def add_exact(name, label, kernel, plain, library, bound, by="bytes", note="", **extra):
         """An integer or copy kernel: identical to its twin; CUDA-event ms of
         kernel, twin and library call, and the device ms of the kernel and
         the library call from CUDA-graph replays (these kernels take less
-        time than the wrapper's Python). Returns the kernel's device ms."""
+        time than the wrapper's Python); `note` ends the log line. Returns
+        the kernel's device ms."""
         got, want = kernel(), plain()
         err = max_abs_err(got if isinstance(got, tuple) else (got,),
                           want if isinstance(want, tuple) else (want,))
@@ -1767,26 +1795,35 @@ def probe_phase(torch, np, dev, counted, smi):
         dl = graph_ms(library, torch) if library is not None else None
         log(f"[probe] {name} {label}: identical; kernel {tk:.4f} ms ({dk:.4f} on the device), "
             f"plain {tp:.4f} ms, library {'-' if tl is None else f'{tl:.4f} ms'}"
-            f"{'' if dl is None else f' ({dl:.4f} on the device)'}, bound {bound:.4f} ms ({by})")
+            f"{'' if dl is None else f' ({dl:.4f} on the device)'}, bound {bound:.4f} ms ({by})"
+            + note)
         if dl is not None:
             extra["library_device_ms"] = dl
         add(name, tk, tp, tl, bound, by, device_ms=dk, **extra)
         return dk
 
-    # K2w at the chain-compaction shape of `compact_algo`, with the payload
-    rng = np.random.RandomState(0)
-    r, nn = 144, 2048 * 89
-    keys = np.where(rng.rand(r, nn) < 0.1, rng.randint(0, 1 << 30, (r, nn)),
-                    compact.INVALID).astype(np.int32)
-    pays = np.where(keys != compact.INVALID, rng.randint(1, 1 << 20, (r, nn)), 0)
-    kk = torch.from_numpy(keys).to(dev)
-    pp = torch.from_numpy(pays.astype(np.int32)).to(dev)
+    # K2w at the chain-compaction shape of `compact_algo`, with the payload;
+    # each of its calls here, and probe_compact's without a payload, one
+    # kernel after one memset (no pad or copy)
+    rng = np.random.RandomState(0)   # K13-K16's inputs below come after these
+    keys, pays = probe_rows(np, 0.1, True, rng)
+    kk, pp = torch.from_numpy(keys).to(dev), torch.from_numpy(pays).to(dev)
+    r, nn = keys.shape
     kw = dict(cap=1 << 14, chunk=16384)
     out = compact.compact_rows(kk, [pp], algo="window", **kw)
+    floor_ms, floor_bytes = sector_floor(kk, [pp], out, kw["cap"])
+    per_call = [listed_call(f"compact_rows_window ({r}, {nn}) -> {kw['cap']} +pay",
+                            lambda: compact.compact_rows(kk, [pp], algo="window", **kw), 1,
+                            torch),
+                listed_call(f"compact_rows_window ({r}, {nn}) -> 65536",
+                            lambda: compact.compact_rows(kk, algo="window", cap=1 << 16,
+                                                         chunk=8192), 1, torch)]
     add_exact("compact_rows_window", f"({r}, {nn}) cap {kw['cap']} chunk {kw['chunk']}",
               lambda: compact.compact_rows(kk, [pp], algo="window", **kw),
               lambda: compact.compact_rows_torch(kk, [pp], **kw), None,
-              bound_ms("compact_rows", (kk, [pp]), kw, out))
+              bound_ms("compact_rows", (kk, [pp]), kw, out),
+              note=f", payload-sector floor {floor_ms:.4f} ms ({floor_bytes / 1e6:.1f} MB)",
+              sector_floor_ms=floor_ms, kernel_launches_per_call=per_call)
     del kk, pp, out
 
     # K7 on the window's voxels
@@ -2174,7 +2211,8 @@ def main():
                                              "f32_rel_err_vs_f64", "calls",
                                              "library_device_ms", "library_bytes_per_s",
                                              "taps_device_ms", "levels",
-                                             "kernel_launches_per_call") if k in r}})
+                                             "kernel_launches_per_call",
+                                             "sector_floor_ms") if k in r}})
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "stage2_roofline": roofline_rates,
                       "card": smi}))
@@ -2337,6 +2375,80 @@ def stage2_times(torch, np, dev, n=N_TIMED):
                                                              for x in merge_labels)
     del v, main, grid, merges, appends, stream
     torch.cuda.empty_cache()
+    times.update(window_times(torch, np, dev, n))
+    return times
+
+
+def probe_rows(np, density, payload, rng=None):
+    """The probes' chain-compaction rows (`perf_probe.probe_compact_algo`):
+    144 x 182,272 int32 keys, valid with probability `density`, and with
+    `payload` the slope payload (non-zero where a key is valid), drawn from
+    `rng` (a RandomState seeded 0 where it is None)."""
+    from v2ce_toolbox_tpu_torch.ops import compact
+
+    rng = np.random.RandomState(0) if rng is None else rng
+    r, nn = PROBE_ROWS
+    keys = np.where(rng.rand(r, nn) < density, rng.randint(0, 1 << 30, (r, nn)),
+                    compact.INVALID).astype(np.int32)
+    if not payload:
+        return keys, None
+    pays = np.where(keys != compact.INVALID, rng.randint(1, 1 << 20, (r, nn)), 0)
+    return keys, pays.astype(np.int32)
+
+
+def window_times(torch, np, dev, n=N_TIMED):
+    """For `--compare-conv --sets stage2`: K2w, compact_rows(algo="window"),
+    at the probes' shapes, by CUDA events (median of n) and on the device
+    by graph replays (`... device`): with the payload at cap 16,384, chunk
+    16,384 (`compact_rows_window[probe: ...]`), and without it at cap
+    65,536, chunks 8,192 and 16,384, densities 0.1 and 0.3 (`probe_compact`'s
+    calls). Then torch.profiler's split of the payload call's device time
+    by activity (`compact_rows_window[split: <kernel or memset>]`, the
+    median of N_DEVICE profiled calls), so that a pad or copy before the
+    compaction shows apart. Returns {label: ms}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from v2ce_toolbox_tpu_torch.ops import compact
+
+    times = {}
+    keys, pays = probe_rows(np, 0.1, True)
+    kk, pp = torch.from_numpy(keys).to(dev), torch.from_numpy(pays).to(dev)
+    r, nn = keys.shape
+
+    def call():
+        return compact.compact_rows(kk, [pp], cap=1 << 14, chunk=16384, algo="window")
+
+    label = f"compact_rows_window[probe: {r}x{nn}->16384+pay]"
+    times[label] = time_one(call, torch, n)
+    times[f"{label} device"] = graph_ms(call, torch)
+    split = {}
+    for _ in range(N_DEVICE):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        per = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                name = re.sub(r"\(anonymous namespace\)::|void |<.*|\(.*", "", ev.name)[:48]
+                per[name] = per.get(name, 0.0) + ev.device_time_total / 1e3
+        for name, ms in per.items():
+            split.setdefault(name, []).append(ms)
+    for name, ms in split.items():
+        times[f"compact_rows_window[split: {name}]"] = statistics.median(ms)
+    del kk, pp, keys, pays
+    for density in (0.1, 0.3):
+        keys, _ = probe_rows(np, density, False)
+        kk = torch.from_numpy(keys).to(dev)
+        for chunk in (8192, 16384):
+            def call(chunk=chunk):
+                return compact.compact_rows(kk, cap=1 << 16, chunk=chunk, algo="window")
+
+            label = f"compact_rows_window[probe d={density} chunk {chunk}: ->65536]"
+            times[label] = time_one(call, torch, n)
+            times[f"{label} device"] = graph_ms(call, torch)
+        del kk, keys
+    torch.cuda.empty_cache()
     return times
 
 
@@ -2468,15 +2580,20 @@ def compare_conv(trees, sets=COMPARE_SETS):
     base = os.path.realpath(trees[0])
 
     def report(label, value):
+        # a label that only some trees have (a kernel's name in a profiler
+        # split) is reported for those
         by_tree = {}
         for tree, ms in runs:
-            by_tree.setdefault(os.path.realpath(tree), []).append(value(ms))
+            with contextlib.suppress(KeyError):
+                v = value(ms)
+                by_tree.setdefault(os.path.realpath(tree), []).append(v)
         means = {t: statistics.mean(v) for t, v in by_tree.items()}
         log(f"[compare-conv] {label}: " + ", ".join(
-            f"{os.path.relpath(t, ROOT)} {m:.4f} ms ({m / means[base] - 1:+.1%}; runs "
-            f"{', '.join(f'{x:.4f}' for x in by_tree[t])})" for t, m in means.items()))
+            f"{os.path.relpath(t, ROOT)} {m:.4f} ms ("
+            + (f"{m / means[base] - 1:+.1%}; " if base in means else "")
+            + f"runs {', '.join(f'{x:.4f}' for x in by_tree[t])})" for t, m in means.items()))
 
-    for label in sorted(runs[0][1]):
+    for label in sorted({label for _, ms in runs for label in ms}):
         report(label, lambda ms: ms[label])
     for d in ("bfloat16", "float32") if "conv" in sets else ():
         # the strided K11 layers without their wrapper's fold: the core's share

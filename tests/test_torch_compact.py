@@ -1,8 +1,13 @@
 """K2 (compact_rows, algo="place"), K2w (compact_rows, algo="window", the
 default) and K3 (merge_sorted_rows): the port's plain twins are
 byte-identical to the JAX Pallas kernels (interpret mode on the CPU), with
-binding caps and payloads. The CUDA kernels are held against the twins in
-tests/test_torch_kernels.py."""
+binding caps and payloads, and for K2w at row lengths that are not a
+multiple of the chunk, which the JAX wrapper pads and the port does not.
+The launch plan and its constants are the kernels'. The CUDA kernels are
+held against the twins in tests/test_torch_kernels.py."""
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -11,7 +16,7 @@ import torch
 import jax.numpy as jnp
 
 from v2ce_toolbox_tpu.ops import compact_pallas as jax_compact
-from v2ce_toolbox_tpu_torch.ops import compact
+from v2ce_toolbox_tpu_torch.ops import _cuda, compact
 from tests.test_torch_streaming import one_torch_thread  # noqa: F401 (autouse)
 
 INVALID = compact.INVALID
@@ -88,6 +93,20 @@ def test_compact_plan(rows, n, capp, expect):
     assert compact.plan(rows, n, capp) == expect
 
 
+@pytest.mark.parametrize("rows,n,capp,expect", [
+    # K2w's tiles of 8,192 keys: the probe rows (144 x 182,272 keys, cap
+    # 16,384 and 65,536), a row shorter than a tile, an empty row, a row of
+    # 301 tiles
+    (144, 182272, 16384, (23, 1, 3313)),
+    (144, 182272, 65536, (23, 4, 3313)),
+    (5, 1000, 256, (1, 1, 6)),
+    (4, 0, 256, (0, 1, 1)),
+    (1, 4096 * 600 + 12, 1 << 20, (301, 64, 302)),
+])
+def test_compact_window_plan(rows, n, capp, expect):
+    assert compact.plan(rows, n, capp, compact._WINDOW_TILE) == expect
+
+
 @pytest.mark.parametrize("density", [0.0, 0.05, 0.5, 0.95, 1.0])
 def test_compact_rows_window_matches_jax(density):
     # tests/test_compact.py's densities and shape: (4, 8 * 256), chunk 256,
@@ -99,6 +118,47 @@ def test_compact_rows_window_matches_jax(density):
     got = compact.compact_rows(torch.from_numpy(keys), [torch.from_numpy(pay)], cap=1024,
                                chunk=256)
     _assert_same(ref, got)
+
+
+@pytest.mark.parametrize("case", [
+    # (rows, n, density, cap, payload, empty row), chunk 256, n not a
+    # multiple of it (the JAX wrapper pads, the port does not): the cap
+    # binding inside a chunk (300 -> 512 of ~800 valids) with a payload;
+    # n % 4 != 0 (the kernel's key-by-key route); n smaller than one chunk;
+    # an all-INVALID row beside others
+    (3, 1000, 0.8, 300, True, False),
+    (2, 1001, 0.5, 1024, True, False),
+    (2, 200, 0.5, 256, True, False),
+    (3, 777, 0.4, 256, False, True),
+])
+def test_compact_rows_window_ragged_n_matches_jax(case):
+    r, n, density, cap, with_pay, empty_row = case
+    keys, pay = _rows(11, r, n, density)
+    if empty_row:
+        keys[1] = INVALID
+    pays = [np.where(keys != INVALID, pay, 0)] if with_pay else []
+    ref = jax_compact.compact_rows(jnp.asarray(keys), [jnp.asarray(p) for p in pays],
+                                   cap=cap, chunk=256, algo="window")
+    got = compact.compact_rows(torch.from_numpy(keys), [torch.from_numpy(p) for p in pays],
+                               cap=cap, chunk=256, algo="window")
+    _assert_same(ref, got)
+    if cap < n * density:
+        assert (got[3] > got[2]).any()      # the cap really binds
+    if empty_row:
+        assert int(got[3][1]) == 0
+
+
+def test_compact_plan_constants_match_the_kernel():
+    # the tiles and the fill chunk the plan assumes are the kernel's own
+    with open(os.path.join(_cuda._CSRC, "compact_rows.cu")) as fh:
+        src = fh.read()
+    consts = {m.group(1): m.group(2) for m in
+              re.finditer(r"constexpr int (k\w+) = ([^;]+);", src)}
+    assert int(consts["kThreads"]) * int(consts["kSteps"]) == compact._TILE
+    assert consts["kTile"] == "kThreads * kSteps"
+    assert int(consts["kThreads"]) * int(consts["kWindowSteps"]) == compact._WINDOW_TILE
+    assert consts["kWindowTile"] == "kThreads * kWindowSteps"
+    assert int(consts["kFill"]) == compact._FILL
 
 
 def test_compact_rows_window_capacity_drop_matches_jax():

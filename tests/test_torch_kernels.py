@@ -11,9 +11,10 @@ relative to its largest value (sums in another order), bf16 outputs within
 FastFlowNet's cost volume (K8 correlation) at its five pyramid levels
 within 1e-5 (the same reason), its tap subset identical to the full
 volume's planes and written into a wider buffer without touching the
-channels around it. The probe harness's kernels: K2w (K2's
-kernel through its own entry) identical; K11 conv3d_quad within the conv
-bounds (its twin sums in f64); K12 conv3d_wino4 within 5e-5 with an f32
+channels around it. The probe harness's kernels: K2w (K2's kernel with
+8,192-key tiles) identical, on unpadded rows of any length and alignment;
+K11 conv3d_quad within the conv bounds (its twin sums in f64); K12
+conv3d_wino4 within 5e-5 with an f32
 output (WINO_TOL) and 8e-3 with a bf16 one, 'nodot' identical, and its
 fused bf16 route's scratch without Z; K7 and K13-K16 identical (K16 also
 at ragged row counts, lengths and alignments).
@@ -215,12 +216,14 @@ STRESS_TIMEOUT_S = 300    # the child's start, its inputs and twins, and the cal
 
 
 def stress_lookback(iters):
-    """Back-to-back K1 and K2 calls at the main-path shapes of a 24-frame
-    chunk, with no host sync between them: K1 'slope' over (24, 2, 10,
-    260, 346) voxels at the default sampler's cap, then K2 at (216, 16384)
-    -> 4096 with a payload, (216, 31616) -> 16384 and (216, 16384) -> 4096.
-    Every output of every call is held against its twin's on the card;
-    returns the number of outputs that differ (synced once, at the end)."""
+    """Back-to-back K1, K2 and K2w calls with no host sync between them:
+    K1 'slope' over (24, 2, 10, 260, 346) voxels at the default sampler's
+    cap, then K2 at the main-path shapes of a 24-frame chunk, (216, 16384)
+    -> 4096 with a payload, (216, 31616) -> 16384 and (216, 16384) -> 4096,
+    then K2w at the probe shape (144, 182272) -> 16384 with a payload and
+    at (216, 31615) -> 4096. Every output of every call is held against
+    its twin's on the card; returns the number of outputs that differ
+    (synced once, at the end)."""
     from v2ce_toolbox_tpu_torch.config import SamplerConfig
     from v2ce_toolbox_tpu_torch.ops import ldati
 
@@ -242,6 +245,16 @@ def stress_lookback(iters):
         calls.append((lambda k=k, pays=pays, cap=cap: compact.compact_rows(
             k, pays, cap=cap, chunk=4096, algo="place"),
             compact.compact_rows_torch(k, pays, cap=cap, chunk=4096)))
+    # K2w: the probe rows with the payload (16-byte loads), and ragged rows
+    # without (key by key)
+    for seed, (r, n, cap, chunk, with_pay) in enumerate(
+            [(144, 2048 * 89, 16384, 16384, True), (216, 31615, 4096, 4096, False)]):
+        keys, pay = _rows(40 + seed, r, n, 0.1)
+        k = torch.from_numpy(keys).to(dev)
+        pays = [torch.from_numpy(pay).to(dev)] if with_pay else []
+        calls.append((lambda k=k, pays=pays, cap=cap, chunk=chunk: compact.compact_rows(
+            k, pays, cap=cap, chunk=chunk, algo="window"),
+            compact.compact_rows_torch(k, pays, cap=cap, chunk=chunk)))
     for run, ref in calls:                        # shapes and dtypes, once
         _assert_equal(run(), ref)
     bad = torch.zeros((), dtype=torch.int64, device=dev)
@@ -275,7 +288,7 @@ def _stress_in_child(fn, what):
 def test_compaction_back_to_back_calls_never_hang_on_card():
     # an ordering fault of the look-back (a tile that waits for a flag no
     # store ever leaves) hangs the card only now and then
-    _stress_in_child("stress_lookback", "K1 and K2")
+    _stress_in_child("stress_lookback", "K1, K2 and K2w")
 
 
 def _prefix_rows(seed, lengths, w):
@@ -342,9 +355,10 @@ def test_merge_back_to_back_calls_never_hang_on_card():
 
 @pytest.mark.requires_cuda
 def test_compaction_graph_replays_reset_the_lookback_on_card():
-    # one K2 and one K1 call captured in a CUDA graph, replayed over new
-    # inputs: each replay's memset must clear the previous one's ticket and
-    # status words, or the offsets (and the tickets) would be stale
+    # one K2, one K1 and one K2w call captured in a CUDA graph, replayed
+    # over new inputs: each replay's memset must clear the previous one's
+    # ticket and status words, or the offsets (and the tickets) would be
+    # stale
     dev = _cuda_or_skip()
     r, n = 4, 8192 * 5 + 100
     k = torch.empty((r, n), dtype=torch.int32, device=dev)
@@ -362,7 +376,8 @@ def test_compaction_graph_replays_reset_the_lookback_on_card():
 
     def run():
         return (compact.compact_rows(k, [p], cap=8192, chunk=8192, algo="place"),
-                gen.gen_compact(v, **kw))
+                gen.gen_compact(v, **kw),
+                compact.compact_rows(k, [p], cap=8192, chunk=8192, algo="window"))
 
     load(20)
     side = torch.cuda.Stream()
@@ -379,6 +394,7 @@ def test_compaction_graph_replays_reset_the_lookback_on_card():
         torch.cuda.synchronize()
         _assert_equal(out[0], compact.compact_rows_torch(k, [p], cap=8192, chunk=8192))
         _assert_equal(out[1], gen.gen_compact_torch(v, **kw))
+        _assert_equal(out[2], out[0])
 
 
 @pytest.mark.requires_cuda
@@ -725,7 +741,8 @@ def test_correlation_never_takes_the_twin_off_cpu():
                                            (3, 1000, 128, 128)])
 @pytest.mark.parametrize("density", [0.1, 0.6])
 def test_compact_rows_window_equals_twin_on_card(r, n, cap, chunk, density):
-    # K2w: the probes' shapes (n padded to the chunk) and a short row
+    # K2w: the probes' shapes (182,272 keys a row, not a multiple of either
+    # chunk, which the kernel takes unpadded) and a short row
     dev = _cuda_or_skip()
     keys, pay = _rows(8, r, n, density)
     k, p = torch.from_numpy(keys).to(dev), torch.from_numpy(pay).to(dev)
@@ -734,6 +751,30 @@ def test_compact_rows_window_equals_twin_on_card(r, n, cap, chunk, density):
                   compact.compact_rows_torch(k, [p], cap=cap, chunk=chunk))
     assert compact.launches["compact_rows_window"] == before["compact_rows_window"] + 1
     assert compact.launches["compact_rows"] == before["compact_rows"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("r,n,cap,chunk,density,view", [
+    (3, 16387, 8192, 8192, 0.5, False),      # n % chunk != 0 and n % 4 != 0: key by key
+    (2, 16384, 4096, 4096, 0.5, True),       # keys off 16 bytes: key by key
+    (5, 1000, 256, 128, 0.6, False),         # n smaller than one tile, the cap binds
+    (4, 0, 256, 256, 0.5, False),            # no keys: fill tiles only
+    (4, 32768, 8192, 8192, 1.0, False),      # all valid, cap on a tile boundary
+    (3, 40000, 5000, 128, 1.0, False),       # all valid, cap inside a tile (5,120)
+    (3, 20000, 4096, 4096, 0.0, False),      # all INVALID
+    (1, 4096 * 600 + 12, 1 << 20, 8192, 0.3, False),   # 301 tiles: a long look-back
+    (144, 2048 * 89, 1 << 14, 16384, 0.3, False),      # the probe rows, the cap binds early
+])
+def test_compact_rows_window_core_paths_equal_twin_on_card(r, n, cap, chunk, density, view):
+    # K2w's tiles of 8,192 keys, unpadded rows: 16-byte loads where n % 4
+    # == 0 and the keys start on 16 bytes, key by key otherwise; fill tiles
+    # for the tail
+    dev = _cuda_or_skip()
+    keys, pay = _rows(10, r, n, density)
+    k, p = _on_card(keys, dev, view), _on_card(pay, dev, view)
+    for pays in ([p], ()):
+        _assert_equal(compact.compact_rows(k, pays, cap=cap, chunk=chunk, algo="window"),
+                      compact.compact_rows_torch(k, pays, cap=cap, chunk=chunk))
 
 
 @pytest.mark.requires_cuda

@@ -13,10 +13,14 @@ after the memset of its scratch a call, planned here (`plan`,
 
 `compact_rows` keeps the JAX package's two algorithms and its default,
 algo="window" (K2w, `_compact_kernel`) beside algo="place" (K2,
-`_compact_kernel2`). They share one contract, so both launch K2's kernel,
-each through its own C entry and launch count; the TPU's 2-chunk roll
-butterfly, the only difference, is a VMEM tiling artifact. The port's
-sampler and wire format pass algo="place", as the JAX package's do.
+`_compact_kernel2`). They share one contract and one twin; the TPU's
+2-chunk roll butterfly, the only difference, is a VMEM tiling artifact.
+Each has its own C entry and launch count in `csrc/compact_rows.cu`, on
+one kernel: one block a tile, 4,096 keys for K2 and 8,192 for K2w, whose
+rows (the probes') do not fit in L2. Neither pads the rows (the JAX
+wrapper pads N to a multiple of the chunk for its grid; INVALID padding
+keeps no key). The port's sampler and wire format pass algo="place", as
+the JAX package's do.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch
 from v2ce_toolbox_tpu_torch.ops import _cuda
 
 INVALID = 2 ** 31 - 1          # int32 max marks an empty slot
-_TILE = 4096                   # keys per compute tile of csrc/compact_rows.cu
+_TILE = 4096                   # keys per compute tile of csrc/compact_rows.cu: K2
+_WINDOW_TILE = 8192            # and K2w
 _FILL = 16384                  # output slots per tail chunk
 _MERGE_TILE = 4096             # keys per compute tile of csrc/merge_rows.cu
 _MERGE_FILL = 4096             # output slots per tail chunk of csrc/merge_rows.cu
@@ -64,14 +69,14 @@ def check_cuda_int32(name: str, t: torch.Tensor, shape) -> None:
 # K2: stable per-row compaction
 # ---------------------------------------------------------------------------
 
-def plan(rows: int, n: int, capp: int) -> Tuple[int, int, int]:
-    """K2's launch plan (csrc/compact_rows.cu, which checks it): (compute
-    tiles a row, fill tiles a row, 64-bit scratch words). A row of n keys
-    is ceil(n / 4096) compute tiles; its capp-wide output's tail is written
-    by fill tiles, one a chunk of 16,384 slots (at least one, which also
-    writes kept and total); the scratch is the ticket and one status word
-    per compute tile."""
-    tiles = -(-n // _TILE)
+def plan(rows: int, n: int, capp: int, tile: int = _TILE) -> Tuple[int, int, int]:
+    """K2's and K2w's launch plan (csrc/compact_rows.cu, which checks it):
+    (compute tiles a row, fill tiles a row, 64-bit scratch words). A row of
+    n keys is ceil(n / tile) compute tiles (K2: _TILE, K2w: _WINDOW_TILE);
+    its capp-wide output's tail is written by fill tiles, one a chunk of
+    16,384 slots (at least one, which also writes kept and total); the
+    scratch is the ticket and one status word per compute tile."""
+    tiles = -(-n // tile)
     return tiles, max(1, -(-capp // _FILL)), 1 + rows * tiles
 
 
@@ -108,8 +113,8 @@ def compact_rows(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
         the TPU kernel drops whole chunks, which keeps exactly the first
         cap' valids.
       algo: "window" (K2w) or "place" (K2): the same result, each with its
-        own C entry and launch count. "window" pads N to a multiple of
-        `chunk` with INVALID first, as the JAX wrapper does.
+        own C entry, kernel and launch count. N need not be a multiple of
+        `chunk`: the kernels mask each row's ragged last tile.
     Returns:
       (out_keys (R, cap'), out_payloads, kept (R,), total (R,)): INVALID
       keys / zero payloads past kept = min(total, cap'); total - kept is
@@ -128,14 +133,10 @@ def compact_rows(keys: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
     check_cuda_int32("compact_rows keys", keys, (r, n))
     for p in payloads:
         check_cuda_int32("compact_rows payload", p, (r, n))
-    if algo == "window" and n % chunk:
-        pad = chunk - n % chunk
-        keys = torch.nn.functional.pad(keys, (0, pad), value=INVALID)
-        payloads = tuple(torch.nn.functional.pad(p, (0, pad)) for p in payloads)
-        n += pad
     capp = _round_up(cap, chunk)
-    tiles, fills, words = plan(r, n, capp)
-    if n > (1 << 31) - _TILE or capp > (1 << 31) - _FILL or r * (tiles + fills) >= 1 << 31:
+    tile = _WINDOW_TILE if algo == "window" else _TILE
+    tiles, fills, words = plan(r, n, capp, tile)
+    if n > (1 << 31) - tile or capp > (1 << 31) - _FILL or r * (tiles + fills) >= 1 << 31:
         raise ValueError(f"compact_rows: ({r}, {n}) -> cap {capp} exceeds the kernel's "
                          "limits")
     dev = keys.device

@@ -102,7 +102,10 @@ def _rand_keys(rng, r, n, density):
 
 def probe_compact(dev, r=144, n=2048 * 89, densities=(0.1, 0.3), chunks=(8192, 16384)):
     """The compactor (compact_rows, the default algo 'window': K2w) at the
-    sampler's scale: 144 rows (16 frames x 9 bins) x ~180k slots."""
+    sampler's scale: 144 rows (16 frames x 9 bins) x 182,272 slots, 105 MB
+    of keys, more than the card's L2 holds. The rows are not a multiple of
+    either chunk; K2w takes them unpadded (the JAX wrapper pads), so the
+    chunk changes only the kept width, cap rounded up to it."""
     from v2ce_toolbox_tpu_torch.ops.compact import INVALID, compact_rows
 
     rng = np.random.RandomState(0)
@@ -134,7 +137,9 @@ def probe_compact(dev, r=144, n=2048 * 89, densities=(0.1, 0.3), chunks=(8192, 1
 
 def probe_compact_algo(dev, r=144, n=2048 * 89, chunks=(8192, 16384)):
     """window (K2w) vs place (K2) at the sampler's chain-compaction shape,
-    with the slope payload riding along."""
+    with the slope payload riding along: one contract and one kernel
+    (csrc/compact_rows.cu), one block a tile of 8,192 keys for K2w and of
+    4,096 for K2."""
     from v2ce_toolbox_tpu_torch.ops.compact import INVALID, compact_rows
 
     rng = np.random.RandomState(0)
