@@ -40,8 +40,8 @@ Phases, any failure exits non-zero before the result lines:
      EventStream flatten). Outputs must be identical. At the dense
      setting: median CUDA-event times of kernel and twin, each call's
      device ms from CUDA-graph replays, and each call's bound (the bytes it
-     needs, see bound_ms, at the HBM rate); torch.profiler's listing of the
-     card's activity in each K1, K2, K3 and K5 call (K2, K3, K5: one kernel
+     needs, see bound_ms, at the HBM rate); the nodes of a CUDA graph of
+     each K1, K2, K3 and K5 call, the work it enqueues (K2, K3, K5: one kernel
      after the memset of its scratch; K1: at most two kernels after it),
      and the bytes K1's design moves against the voxel grid;
   4. the CLI (`cli.main`), full-width model on seeded random weights, each
@@ -113,7 +113,7 @@ Phases, any failure exits non-zero before the result lines:
      ablation identical), K2w
      compact_rows(algo="window"), K7 layout_barrier and K13-K16
      identical (K2w's calls there, with and without the payload, each one
-     kernel after one memset by torch.profiler, no pad or copy; its
+     kernel after one memset in a CUDA graph of the call, no pad or copy; its
      payload-sector floor logged beside its bound); each with kernel, twin and
      library ms (cuDNN F.conv3d for K11 and K12, clone() for the copies)
      and its bound (K12's from its Winograd FLOPs), the live steps of
@@ -122,11 +122,11 @@ Phases, any failure exits non-zero before the result lines:
      and for K2w, K7 and
      K13-K16 the device ms from CUDA-graph replays (for K7, K15 and K16
      also clone()'s, and for K15 and K16 both read + write rates); for each K12 call its device ms from CUDA-graph
-     replays, the port's kernels it launches, counted by torch.profiler
-     (bf16: the input transform, the live-step pre-pass and the fused
-     kernel, one each; f32: the input transform, the product and the
-     output transform; a listing that lacks one is taken again, as in
-     3), and the memory it takes (the allocator's peak
+     replays, the port's kernels it launches, counted in a CUDA graph of
+     the call (bf16: the input transform, the live-step pre-pass and the
+     fused kernel, one each; f32: the input transform, the product and the
+     output transform), each one's device ms by torch.profiler (a listing
+     that lacks one is taken again), and the memory it takes (the allocator's peak
      rise); K13's and K14's device times must rise from k=64 to k=256, and
      at each k the ops that touch data (k/2 an element) over the device
      time must stay under the card's int32 issue rate; the SASS of their
@@ -167,6 +167,28 @@ Phases, any failure exits non-zero before the result lines:
      ms of each step (median of the warm ones) and the peak GiB; (c) the
      launch counters over (b), which must all stay 0 (the convs are
      cuDNN's; the kernels line carries each kernel's `training_launches`).
+ 15. the remaining models and utilities on seeded weights, counted (no
+     port kernel may launch; `phase15_launches` in the kernels line): (a)
+     V2ce2d (multi, base 32, 4 encoders, BN, SN) card vs CPU on a 16-frame
+     64x96 window within STAGE1_REL_TOL, one train-mode forward and
+     backward on both (BN statistics and SN vectors within
+     TRAIN_STATE_REL_TOL), then (1, 16, 260, 346, 2) -> (1, 16, 260, 346,
+     20) on the card, ms a forward and peak GiB, and render_event_frames
+     of its output card vs CPU; (b) UNetPlain3D at its default widths (160
+     in, 16 out, concat, BN, sigmoid), multi off and on, card vs CPU at
+     64x96, then 260x346 on the card; (c) ResNetDiscriminator on (16, 260,
+     346, 20), logits card vs CPU; (d) MaxPooling([16, 12]) and
+     MaxPoolingX([87, 65, 1], 16) on a synthetic 262,144-node, 4-graph,
+     2,097,152-edge event graph, ids, counts, perm, edges and max features
+     identical to the CPU's, the float sums within GRAPH_SUM_REL_TOL; (e)
+     MVSECSequence.from_arrays over a synthetic 260x346 recording (crop
+     256x320, 9 bins, eval and train items), normalize_event_volume_torch
+     on the card against its CPU twin and the host normalisation (apart
+     only where the f32 and f64 k indices differ), scale_events card vs
+     CPU on a 256x256 generator grid, identical; (f) the blurred pair
+     gradient on (16, 260, 346, 1) card vs CPU, the gen_phy_att and
+     time_voxel_stat_calc tools on two 260x346 packets, from_recarray on
+     the card, and the native stream packer against numpy, byte for byte.
 The line before the last is a JSON object of per-kernel results (its
 `launches` is the count of the kernel's own path, KERNEL_PATH, and
 `launches_by_path` every counted path's count; K9's and K10's times are
@@ -176,6 +198,7 @@ bf16, K12's over the three `wino_pallas` shapes in bf16); the last is
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -254,6 +277,27 @@ TRAIN_PACKETS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 40, 4, 16, 4
 TRAIN_LOG_REL_TOL, TRAIN_STATE_REL_TOL, TRAIN_GRAD_REL_TOL = 1e-4, 1e-4, 1e-1
 TRAIN_PARAM_SHARE = 0.01
 TRAIN_DEAD_BIAS = "downsample.0.bias"
+# phase 15, the remaining models and utilities: the V2ce2d and UNetPlain3D
+# windows (frames; the card-vs-CPU comparisons run at CMP_HW, the full
+# 260x346 forwards on the card alone), the ResNetDiscriminator's batch (one
+# V2ce3d window's frames), the event graph (nodes over GRAPHS graphs, 64
+# features, 8 edges a node) and the EventGAN recording (frames, crop, bins,
+# and the noise events a frame gap that bring each volume to MVSEC-like
+# counts of GAN_MIN_NONZEROS and more nonzeros, which the phase gates).
+# Card against CPU: the models within STAGE1_REL_TOL of the largest output,
+# their train-mode BN statistics and SN vectors within TRAIN_STATE_REL_TOL
+# of each tensor's largest; the graph's ids, counts, perm, edges and max
+# features identical, its float sums (atomics on the card) within
+# GRAPH_SUM_REL_TOL of each tensor's largest; the image gradient within
+# GRAD_REL_TOL of its largest (cuDNN may sum the 11-tap blur in another
+# order); scale_events and the volume normalisation identical.
+M_FRAMES, CMP_HW = 16, (64, 96)
+PLAIN_IN, PLAIN_OUT = 160, 16
+GRAPH_NODES, GRAPHS, GRAPH_FEATS, GRAPH_DEG = 262144, 4, 64, 8
+GRAPH_POOL, GRAPH_POOL_X = [16.0, 12.0], ([87.0, 65.0, 1.0], 16)
+GAN_FRAMES, GAN_CROP, GAN_BINS, GAN_NOISE = 25, (256, 320), 9, 150000
+GAN_MIN_NONZEROS = 100000
+GRAPH_SUM_REL_TOL, GRAD_REL_TOL = 1e-5, 1e-5
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -543,32 +587,72 @@ def kernels_phase(torch, np, dev):
     return results, errs, dense
 
 
-def device_activities(fn, torch):
-    """Names of the card's activities (kernels, memsets, copies) in one fn
-    call, in start order, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+# CUgraphNodeType (cuda.h) of the nodes a listed call may make
+GRAPH_NODE_TYPES = {0: "kernel", 1: "Memcpy", 2: "Memset", 3: "host", 4: "graph", 5: "empty",
+                    6: "wait event", 7: "event record", 10: "mem alloc", 11: "mem free"}
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+class _KernelNodeParams(ctypes.Structure):
+    # CUDA_KERNEL_NODE_PARAMS_v2 (cuda.h)
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_bytes", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def device_activities(fn, torch):
+    """What one fn call puts on the card, read from a CUDA graph of the
+    call: each kernel's (mangled) name, "Memset", "Memcpy", or the node's
+    type, in the graph's node order. A graph holds every piece of work the
+    call enqueues, which torch.profiler's records, dropped now and then late
+    in a long process, do not."""
+    lib = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} failed with CUresult {rc}")
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
         fn()
-        torch.cuda.synchronize()
-    evs = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
-    return [ev.name for ev in sorted(evs, key=lambda ev: ev.time_range.start)]
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(lib.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(lib.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        name = GRAPH_NODE_TYPES.get(kind.value, f"node type {kind.value}")
+        if kind.value == 0:
+            par, cname = _KernelNodeParams(), ctypes.c_char_p()
+            check(lib.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(par)),
+                  "cuGraphKernelNodeGetParams")
+            if par.func:
+                check(lib.cuFuncGetName(ctypes.byref(cname), ctypes.c_void_p(par.func)),
+                      "cuFuncGetName")
+            elif par.kern:
+                check(lib.cuKernelGetName(ctypes.byref(cname), ctypes.c_void_p(par.kern)),
+                      "cuKernelGetName")
+            name = cname.value.decode() if cname.value else "unnamed kernel"
+        names.append(name)
+    del g
+    return names
 
 
 def launch_listing(torch, cases, results):
-    """The card's activities in each K1, K2, K3 and K5 call of phase 3: a
-    K2, K3 or K5 call must be one kernel after one memset (of its look-back
-    scratch), a K1 call at most two kernels after one.
-
-    torch.profiler can drop a record, most often the first activity of a
-    process's first session (the call's memset), so the profiler is warmed
-    up on one call first, and a listing that lacks its memset or its kernel
-    is taken again, at most LISTING_TRIES times. A listing with more kernels
-    or memsets than allowed, or with any copy, fails at once."""
+    """The card's work in each K1, K2, K3 and K5 call of phase 3
+    (device_activities): a K2, K3 or K5 call must be one kernel after one
+    memset (of its look-back scratch), a K1 call at most two kernels after
+    one."""
     limits = {"gen_compact": 2, "compact_rows": 1, "merge_sorted_rows": 1, "append_rows": 1}
-    _, kernel, _, cl = cases[0]
-    device_activities(lambda: kernel(*cl[0][0], **cl[0][1]), torch)
     for label, kernel, _, cl in cases:
         name = label.split("[")[0]
         if name not in limits:
@@ -579,27 +663,19 @@ def launch_listing(torch, cases, results):
 
 
 def listed_call(label, fn, limit, torch):
-    """The number of kernels the card ran in one fn call, which must be at
-    most `limit` kernels after one memset, with no other kernel, memset or
-    copy (a pad before the kernel would be one); a listing that lacks its
-    memset or its kernel is taken again (see launch_listing)."""
-    for attempt in range(1, LISTING_TRIES + 1):
-        acts = device_activities(fn, torch)
-        kernels = [x for x in acts if not x.startswith(("Memset", "Memcpy"))]
-        memsets = [x for x in acts if x.startswith("Memset")]
-        log(f"[launch listing] {label}: {len(kernels)} kernel(s) "
-            f"{[x.replace('(anonymous namespace)::', '').split('(')[0] for x in kernels]}"
-            f", {len(memsets)} memset(s), "
-            f"{len(acts) - len(kernels) - len(memsets)} copies"
-            + (f" (listing {attempt})" if attempt > 1 else ""))
-        if (len(kernels) > limit or len(memsets) > 1
-                or len(acts) != len(kernels) + len(memsets)):
-            raise AssertionError(f"{label} made {acts}: more than {limit} "
-                                 "kernel(s) after one memset")
-        if kernels and memsets:
-            return len(kernels)
-    raise AssertionError(f"torch.profiler recorded {acts} in {label} "
-                         f"{LISTING_TRIES} times: no kernel after one memset")
+    """The number of kernels one fn call launches (device_activities), which
+    must be one to `limit` kernels after one memset, with no other kernel,
+    memset, copy (a pad before the kernel would be one) or other node."""
+    acts = device_activities(fn, torch)
+    kernels = [x for x in acts if x not in GRAPH_NODE_TYPES.values()]
+    memsets = [x for x in acts if x == "Memset"]
+    log(f"[launch listing] {label}: {len(kernels)} kernel(s) {kernels}, {len(memsets)} "
+        f"memset(s), {len(acts) - len(kernels) - len(memsets)} other nodes")
+    if not (1 <= len(kernels) <= limit and len(memsets) == 1
+            and len(acts) == len(kernels) + len(memsets)):
+        raise AssertionError(f"{label} made {acts}: not 1 to {limit} kernel(s) after one "
+                             "memset")
+    return len(kernels)
 
 
 def sector_floor(keys, pays, out, capp):
@@ -656,8 +732,9 @@ def graph_ms(fn, torch, reps=10):
     return statistics.median(cuda_ms(g.replay, torch) for _ in range(N_TIMED)) / reps
 
 
-# the port's own CUDA kernels in a profiler's kernel name, demangled or not
-PORT_KERNEL_NAME = r"(wino4_\w+?_kernel|live_steps_kernel|conv_taps_\w+?_kernel)"
+# the port's own CUDA kernels in a kernel's name, demangled or not (in a
+# mangled one after the digits of its length, not after "wino4_cu_")
+PORT_KERNEL_NAME = r"(?<![A-Za-z_])(wino4_\w+?_kernel|live_steps_kernel|conv_taps_\w+?_kernel)"
 
 
 def port_launches(fn, torch):
@@ -688,31 +765,30 @@ def port_launches(fn, torch):
 
 
 def listed_launches(fn, want, label, torch):
-    """port_launches of one fn call, held to `want` ({kernel: launches}).
-
-    torch.profiler can drop a record of any session (see launch_listing),
-    so a listing that lacks some of `want`'s launches, or records no
-    kernel, is taken again, at most LISTING_TRIES times; a kernel outside
-    `want`, or more launches of one than `want` allows, fails at once, and
-    so does a call that is never listed as `want`, unless the profiler
-    recorded no kernel in any listing (then None, as port_launches).
-    Retried listings are logged with "(listing N)"."""
-    recorded = False
+    """(own, other, device ms, {kernel: device ms}) of one fn call: the
+    port's own kernels it launches and its other kernels, from a graph of
+    the call (device_activities), with `own` held to `want` ({kernel:
+    launches}); the device times from torch.profiler (port_launches), whose
+    listing is taken again, at most LISTING_TRIES times, until it holds
+    `want`, as it can drop records (the times are None where it never
+    does)."""
+    acts = device_activities(fn, torch)
+    own, other = {}, 0
+    for x in acts:
+        m = re.search(PORT_KERNEL_NAME, x)
+        if m:
+            own[m.group(1)] = own.get(m.group(1), 0) + 1
+        elif x not in GRAPH_NODE_TYPES.values():
+            other += 1
+    if own != want:
+        raise AssertionError(f"{label}: launched {own}, expected {want}")
     for attempt in range(1, LISTING_TRIES + 1):
         counts = port_launches(fn, torch)
-        recorded = recorded or counts is not None
-        own = counts[0] if counts else {}
-        if attempt > 1:
-            log(f"[launch listing] {label}: {own} (listing {attempt})")
-        extra = {k: c for k, c in own.items() if c > want.get(k, 0)}
-        if extra:
-            raise AssertionError(f"{label}: launched {own}, expected {want}")
-        if own == want:
-            return counts
-    if not recorded:
-        return None
-    raise AssertionError(f"{label}: torch.profiler recorded {own} {LISTING_TRIES} times, "
-                         f"expected {want}")
+        if counts and counts[0] == want:
+            return own, other, counts[2], counts[3]
+    log(f"[launch listing] {label}: device times not measured (torch.profiler held "
+        f"{counts and counts[0]} {LISTING_TRIES} times)")
+    return own, other, None, None
 
 
 def peak_scratch(fn, torch):
@@ -1311,15 +1387,18 @@ def research_stage1_phase(torch, np, dev, product, x):
         raise AssertionError("the bf16 research model fails the bf16 fidelity gate")
 
 
-def make_recording(np, n, h, w, seed=0):
+def make_recording(np, n, h, w, seed=0, noise=0):
     """A synthetic DAVIS recording of n frames at FPS: the moving test
     pattern, one event per pixel whose intensity changes by more than 8
     levels between two frames (at a random time in the interval, polarity
-    the sign of the change), and a 1 kHz IMU. Returns the arrays of an
-    MVSEC `davis/left` group."""
+    the sign of the change), plus `noise` events a gap at uniform random
+    pixels, times and polarities (from a generator of their own, so the
+    pattern's events do not change), and a 1 kHz IMU. Returns the arrays
+    of an MVSEC `davis/left` group."""
     from tools.make_test_video import make_frames
 
     rng = np.random.RandomState(seed)
+    noise_rng = np.random.RandomState(seed + 1)
     images = make_frames(n, h, w, seed)
     image_ts = np.arange(n) / FPS
     rows = []
@@ -1328,6 +1407,10 @@ def make_recording(np, n, h, w, seed=0):
         ys, xs = np.nonzero(np.abs(diff) > 8)
         t = image_ts[i] + rng.rand(len(ys)) / FPS
         rows.append(np.stack([xs, ys, t, np.sign(diff[ys, xs])], 1))
+        if noise:
+            rows.append(np.stack([noise_rng.randint(0, w, noise), noise_rng.randint(0, h, noise),
+                                  image_ts[i] + noise_rng.rand(noise) / FPS,
+                                  noise_rng.choice([-1.0, 1.0], noise)], 1))
     events = np.concatenate(rows)
     events = events[np.argsort(events[:, 2], kind="stable")]
     event_inds = np.searchsorted(events[:, 2], image_ts)
@@ -1753,13 +1836,10 @@ def probe_phase(torch, np, dev, counted, smi):
                          "wino4_output_kernel": 1})
                 counts = listed_launches(kernel, want, f"conv3d_wino4 {dname} {name}", torch)
                 scratch = peak_scratch(kernel, torch)
-            if counts is None:
-                how = "launches not measured (the profiler recorded no kernel)"
-            else:
-                own, other, _, own_ms = counts
-                how = ("launches a call (device ms): " + ", ".join(
-                    f"{k_} {c_} ({own_ms[k_]:.4f})" for k_, c_ in sorted(own.items()))
-                    + f" (+ {other} PyTorch kernels around it)")
+            own, other, _, own_ms = counts
+            how = ("launches a call (device ms): " + ", ".join(
+                f"{k_} {c_} ({'-' if own_ms is None else f'{own_ms[k_]:.4f}'})"
+                for k_, c_ in sorted(own.items())) + f" (+ {other} PyTorch kernels around it)")
             log(f"[probe] conv3d_wino4 {dname} {name} {xshape} -> {cout}: rel err {rel:.3e} "
                 f"(limit {tol:g}), 'nodot' identical; kernel {tk:.4f} ms ({dk:.4f} on the device), "
                 f"plain {tp:.4f} ms, cuDNN {tl:.4f} ms, bound {tb:.4f} ms ({by}, "
@@ -1769,9 +1849,8 @@ def probe_phase(torch, np, dev, counted, smi):
             r12 = results[f"conv3d_wino4[{dname}]"]
             r12["device_ms"] = r12.get("device_ms", 0.0) + dk
             wino_calls.append(dict(shape=name, dtype=dname, ms=tk, device_ms=dk,
-                                   launches=counts and counts[0],
-                                   other_launches=counts and counts[1],
-                                   kernel_device_ms=counts and counts[3], peak_bytes=scratch))
+                                   launches=own, other_launches=other,
+                                   kernel_device_ms=own_ms, peak_bytes=scratch))
             del x, k, got, xl, wl
     results["conv3d_wino4[bfloat16]"]["f32_rel_err_vs_f64"] = wino_exact
     results["conv3d_wino4[bfloat16]"]["calls"] = wino_calls
@@ -2082,6 +2161,322 @@ def train_run_phase(torch, np, counted, smi):
     return {"step_ms": steps_ms, "median_warm_ms": warm, "peak_gib": peak}
 
 
+def _card_vs_cpu(torch, model, x, dev):
+    """model on the CPU and a copy on the card (eval, no grad) on x: the
+    outputs (a list for the multi models), and the largest error over the
+    largest |output|."""
+    import copy
+
+    with torch.no_grad():
+        ref = model.eval()(x)
+        got = copy.deepcopy(model).to(dev)(x.to(dev))
+    refs, gots = (ref, got) if isinstance(ref, list) else ([ref], [got])
+    rel = max(_train_rel(g, r) for g, r in zip(gots, refs))
+    if not all(torch.isfinite(g).all() for g in gots) or float(refs[-1].abs().max()) == 0:
+        raise AssertionError("a model's output on the card is not finite, or the CPU's is 0")
+    return gots, rel
+
+
+def _timed_forward(torch, model, x, n=3):
+    """ms of a warm eval forward on the card (median of n) and the peak GiB."""
+    with torch.no_grad():
+        out, peak = peak_gib(torch, lambda: model(x))
+        ms = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(ms), peak
+
+
+def models_2d_phase(torch, np, dev, smi):
+    """Phase 15 (a)-(c): V2ce2d, UNetPlain3D and ResNetDiscriminator at
+    full width on seeded weights."""
+    import copy
+
+    from v2ce_toolbox_tpu_torch.models import ResNetDiscriminator, UNetPlain3D, V2ce2d
+    from v2ce_toolbox_tpu_torch.pipeline.render import render_event_frames
+    from v2ce_toolbox_tpu_torch.utils.weights import init_weights
+
+    rng = np.random.RandomState(15)
+    h, w = CMP_HW
+    out = {}
+    # (a) V2ce2d: card vs CPU at CMP_HW (eval), one train-mode forward and
+    # backward on both (BN statistics, SN vectors), then the full window
+    t0 = time.time()
+    model = V2ce2d()
+    init_weights(model, 0)
+    x = torch.from_numpy(rng.randn(1, M_FRAMES, h, w, 2).astype(np.float32))
+    (got,), rel = _card_vs_cpu(torch, model, x, dev)
+    state = {}
+    for where in ("cpu", dev):
+        m = copy.deepcopy(model).to(where).train()
+        m(x.to(where)).square().mean().backward()
+        state[str(where)] = m.state_dict()
+    errs = {"BN statistics": 0.0, "SN vectors": 0.0}
+    for k, v in state["cpu"].items():
+        if "running_" in k or k.endswith(("weight_u", "weight_v")):
+            group = "BN statistics" if "running_" in k else "SN vectors"
+            errs[group] = max(errs[group], _train_rel(state[str(dev)][k], v))
+    gen = torch.Generator(dev).manual_seed(15)
+    full = torch.randn(1, M_FRAMES, H, W, 2, device=dev, generator=gen)
+    card = model.to(dev).eval()
+    y, ms, peak = _timed_forward(torch, card, full)
+    # the card's and the CPU's bin sums may round apart: a level at most
+    frames = render_event_frames(y[0].clamp(min=0)).astype(np.int16)
+    frames_cpu = render_event_frames(y[0].clamp(min=0).cpu()).astype(np.int16)
+    render_levels = int(np.abs(frames - frames_cpu).max())
+    log(f"[models] V2ce2d (multi, base 32, 4 encoders, BN, SN): card vs CPU at "
+        f"{tuple(x.shape)} {rel:.3e} of the largest |output| (limit {STAGE1_REL_TOL:g}); "
+        f"train-mode forward+backward card vs CPU: BN statistics {errs['BN statistics']:.3e}, "
+        f"SN vectors {errs['SN vectors']:.3e} (limit {TRAIN_STATE_REL_TOL:g}); "
+        f"{tuple(full.shape)} -> {tuple(y.shape)}: {ms:.2f} ms a forward, peak {peak:.2f} GiB; "
+        f"render_event_frames {frames.shape} card vs CPU: {render_levels} uint8 levels apart "
+        f"at most (limit 1) "
+        f"({time.time() - t0:.1f} s) [{smi}]")
+    if (rel > STAGE1_REL_TOL or max(errs.values()) > TRAIN_STATE_REL_TOL
+            or tuple(y.shape) != (1, M_FRAMES, H, W, 20) or not torch.isfinite(y).all()
+            or render_levels > 1 or got.shape != (1, M_FRAMES, h, w, 20)):
+        raise AssertionError("V2ce2d on the card disagrees with the CPU")
+    out["V2ce2d"] = {"ms": ms, "peak_gib": peak}
+    del card, y, full
+    torch.cuda.empty_cache()
+
+    # (b) UNetPlain3D at its default widths, multi off and on
+    for multi in (False, True):
+        t0 = time.time()
+        model = UNetPlain3D(PLAIN_IN, PLAIN_OUT, skip_type="concat", activation="sigmoid",
+                            norm="BN", multi=multi)
+        init_weights(model, 1)
+        x = torch.from_numpy(rng.rand(1, M_FRAMES, h, w, PLAIN_IN).astype(np.float32))
+        gots, rel = _card_vs_cpu(torch, model, x, dev)
+        full = torch.rand(1, M_FRAMES, H, W, PLAIN_IN, device=dev, generator=gen)
+        y, ms, peak = _timed_forward(torch, model.to(dev).eval(), full)
+        y = y if multi else [y]
+        log(f"[models] UNetPlain3D ({PLAIN_IN} in, {PLAIN_OUT} out, base 32, 4 encoders, "
+            f"concat, BN, sigmoid, multi {multi}): card vs CPU at {tuple(x.shape)} {rel:.3e} "
+            f"of the largest |output| (limit {STAGE1_REL_TOL:g}); {tuple(full.shape)} -> "
+            f"{[tuple(t.shape) for t in y]}: {ms:.2f} ms a forward, peak {peak:.2f} GiB "
+            f"({time.time() - t0:.1f} s) [{smi}]")
+        if (rel > STAGE1_REL_TOL or len(y) != (4 if multi else 1)
+                or tuple(y[-1].shape) != (1, M_FRAMES, H, W, PLAIN_OUT)
+                or not all(torch.isfinite(t).all() for t in y)
+                or not 0 <= float(y[-1].min()) <= float(y[-1].max()) <= 1):
+            raise AssertionError(f"UNetPlain3D (multi {multi}) on the card disagrees with the CPU")
+        out[f"UNetPlain3D multi={multi}"] = {"ms": ms, "peak_gib": peak}
+        del model, y, full
+        torch.cuda.empty_cache()
+
+    # (c) ResNetDiscriminator on one V2ce3d window's frames
+    t0 = time.time()
+    model = ResNetDiscriminator()
+    init_weights(model, 2)
+    x = torch.from_numpy(rng.rand(M_FRAMES, H, W, 20).astype(np.float32) * 2)
+    (got,), rel = _card_vs_cpu(torch, model, x, dev)
+    _, ms, peak = _timed_forward(torch, model.to(dev).eval(), x.to(dev))
+    log(f"[models] ResNetDiscriminator on {tuple(x.shape)} -> {tuple(got.shape)} logits: card "
+        f"vs CPU {rel:.3e} of the largest |logit| (limit {STAGE1_REL_TOL:g}); {ms:.2f} ms a "
+        f"forward, peak {peak:.2f} GiB ({time.time() - t0:.1f} s) [{smi}]")
+    if rel > STAGE1_REL_TOL or tuple(got.shape) != (M_FRAMES, 2):
+        raise AssertionError("ResNetDiscriminator on the card disagrees with the CPU")
+    out["ResNetDiscriminator"] = {"ms": ms, "peak_gib": peak}
+    return out
+
+
+def event_graph(torch, np, rng):
+    """A synthetic event graph: GRAPH_NODES nodes over GRAPHS graphs, pos =
+    (x in [0, W), y in [0, H), t in [0, 1)), GRAPH_FEATS features, and
+    GRAPH_DEG edges a node to the nodes that follow it in x order within
+    its graph, each edge with 2 attributes."""
+    n = GRAPH_NODES
+    batch = np.repeat(np.arange(GRAPHS), n // GRAPHS).astype(np.int32)
+    pos = np.stack([rng.rand(n) * W, rng.rand(n) * H, rng.rand(n)], 1).astype(np.float32)
+    order = np.lexsort((pos[:, 0], batch))            # by graph, then x
+    per = n // GRAPHS
+    src = np.repeat(order, GRAPH_DEG)
+    within = np.argsort(order) % per                  # each node's rank in its graph
+    nxt = (np.repeat(within, GRAPH_DEG) + np.tile(np.arange(1, GRAPH_DEG + 1), n)) % per
+    dst = order[np.repeat(batch, GRAPH_DEG) * per + nxt]
+    ei = np.stack([src, dst]).astype(np.int32)
+    x = rng.randn(n, GRAPH_FEATS).astype(np.float32)
+    attr = rng.randn(ei.shape[1], 2).astype(np.float32)
+    return [torch.from_numpy(a) for a in (x, pos, batch, ei, attr)]
+
+
+def graph_phase(torch, np, dev, smi):
+    """Phase 15 (d): MaxPooling then MaxPoolingX on the synthetic event
+    graph, the card against the CPU."""
+    from v2ce_toolbox_tpu_torch.models.graph_pool import (MaxPooling, MaxPoolingX,
+                                                          consecutive_cluster, voxel_grid)
+
+    t0 = time.time()
+    inputs = event_graph(torch, np, np.random.RandomState(16))
+
+    def run(where):
+        x, pos, batch, ei, attr = (t.to(where) for t in inputs)
+        if where != "cpu":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        relabel = consecutive_cluster(voxel_grid(pos[:, :2], GRAPH_POOL, batch=batch))
+        pooled = MaxPooling(GRAPH_POOL)(x, pos, batch=batch, edge_index=ei, edge_attr=attr)
+        x_o, pos_o, b_o, _, _, k, _ = pooled
+        valid = torch.arange(x.shape[0], device=x.device) < k
+        size, cells = GRAPH_POOL_X
+        px = MaxPoolingX(size, cells)(x_o, pos_o, b_o, num_graphs=GRAPHS, valid=valid)
+        if where != "cpu":
+            torch.cuda.synchronize()
+        return [t.cpu() for t in pooled + (px,) + relabel], (time.perf_counter() - t1) * 1e3
+
+    (cpu, cpu_ms), (card, _) = run("cpu"), run(dev)
+    card, card_ms = run(dev)                                      # warm
+    names = ("x", "pos", "batch", "edge_index", "edge_attr", "k", "n_edges", "x pooled",
+             "ids", "clusters", "perm")
+    exact = [n for i, n in enumerate(names) if i not in (1, 4)
+             and not torch.equal(card[i], cpu[i])]
+    sums = {n: _train_rel(card[i], cpu[i]) for i, n in enumerate(names) if i in (1, 4)}
+    k, n_e = int(cpu[5]), int(cpu[6])
+    log(f"[models] graph pooling: {GRAPH_NODES} nodes over {GRAPHS} graphs, {GRAPH_FEATS} "
+        f"features, {inputs[3].shape[1]} edges; MaxPooling({GRAPH_POOL}) -> {k} clusters, "
+        f"{n_e} edges; MaxPoolingX{GRAPH_POOL_X} -> {tuple(card[7].shape)}; card vs CPU: ids, "
+        f"counts, perm, pooled batch, edges and max features identical: {not exact}; pos mean "
+        f"{sums['pos']:.3e}, edge_attr {sums['edge_attr']:.3e} of the largest (limit "
+        f"{GRAPH_SUM_REL_TOL:g}); warm card {card_ms:.2f} ms, CPU {cpu_ms:.1f} ms "
+        f"({time.time() - t0:.1f} s) [{smi}]")
+    if (exact or max(sums.values()) > GRAPH_SUM_REL_TOL or not 0 < k < GRAPH_NODES
+            or not 0 < n_e < inputs[3].shape[1] or float(card[7].abs().max()) == 0):
+        raise AssertionError(f"graph pooling on the card disagrees with the CPU: {exact}, {sums}")
+    return {"card_ms": card_ms}
+
+
+def eventgan_utils_phase(torch, np, dev, smi):
+    """Phase 15 (e), (f): the EventGAN data on a synthetic 260x346
+    recording, scale_events, the image gradient, the physical attention
+    and the two packet tools, from_recarray and the native packer."""
+    import io
+    import pickle
+    import shutil
+
+    from v2ce_toolbox_tpu_torch import events
+    from v2ce_toolbox_tpu_torch.data import eventgan
+    from v2ce_toolbox_tpu_torch.data.dummy_data_gen import generate
+    from v2ce_toolbox_tpu_torch.io import native
+    from v2ce_toolbox_tpu_torch.tools import gen_phy_att, time_voxel_stat_calc
+    from v2ce_toolbox_tpu_torch.utils.image_derivative import (
+        get_batch_double_blurred_image_gradient)
+
+    t0 = time.time()
+    images, image_ts, inds, ev = make_recording(np, GAN_FRAMES, H, W, noise=GAN_NOISE)[:4]
+    cfg = eventgan.EventGANDataConfig(image_size=GAN_CROP, start_time=0.0,
+                                      n_time_bins=GAN_BINS, normalize_events=False)
+    vols, shapes = [], set()
+    for train in (False, True):
+        seq = eventgan.MVSECSequence.from_arrays(cfg, images, image_ts, inds, ev, train=train)
+        for i in range(0, len(seq), 4):
+            item = seq[i]
+            vols.append(item["event_volume"])
+            shapes.add((item["prev_image"].shape, item["next_image"].shape,
+                        item["event_volume"].shape))
+    same, twin, edge, nonzeros = 0, 0, 0, []
+    for v in vols:
+        card = eventgan.normalize_event_volume_torch(torch.from_numpy(v).to(dev)).cpu()
+        host = eventgan.normalize_event_volume(v.copy())
+        cpu = eventgan.normalize_event_volume_torch(torch.from_numpy(v))
+        n = int((v != 0).sum())
+        nonzeros.append(n)
+        # the host's k indices are f64, the twin's f32: at an n where they
+        # truncate apart the two pick other order statistics
+        apart = any(int(np.float32(np.float32(q) * np.float32(n))) != int(q * n)
+                    for q in (0.02, 0.98))
+        edge += apart
+        twin += torch.equal(card, cpu)
+        same += apart or card.numpy().tobytes() == host.tobytes()
+    gen = np.random.RandomState(17).uniform(-1, 1, (4, GAN_CROP[0], GAN_CROP[0], 2, 4))
+    gen = torch.from_numpy(gen.astype(np.float32))
+    vs = (GAN_CROP[0], GAN_CROP[0], GAN_BINS)
+    scaled_card = eventgan.scale_events(gen.to(dev), vs).cpu()
+    scaled_equal = torch.equal(scaled_card, eventgan.scale_events(gen, vs))
+    log(f"[models] EventGAN: MVSECSequence.from_arrays over a {GAN_FRAMES}-frame {H}x{W} "
+        f"recording ({len(ev)} events, {GAN_NOISE} of them noise a gap), crop {GAN_CROP}, "
+        f"{GAN_BINS} bins, {len(vols)} eval and train items, shapes {sorted(shapes)}, "
+        f"{min(nonzeros)}-{max(nonzeros)} nonzeros a volume; normalize_event_volume_torch "
+        f"card == CPU twin "
+        f"on {twin} of {len(vols)}, == host on {same - edge} of {len(vols) - edge} ({edge} at "
+        f"an f32/f64 k boundary); scale_events {tuple(gen.shape)} -> "
+        f"{tuple(scaled_card.shape)} card == CPU: {scaled_equal} ({time.time() - t0:.1f} s)")
+    if (twin != len(vols) or same != len(vols) or not scaled_equal or len(shapes) != 1
+            or min(nonzeros) < GAN_MIN_NONZEROS
+            or shapes != {((1, *GAN_CROP), (1, *GAN_CROP), (2 * GAN_BINS, *GAN_CROP))}):
+        raise AssertionError("the EventGAN data on the card disagrees with the host")
+
+    t0 = time.time()
+    rng = np.random.RandomState(18)
+    a, b = (torch.from_numpy(rng.rand(M_FRAMES, H, W, 1).astype(np.float32))
+            for _ in range(2))
+    grad_cpu = get_batch_double_blurred_image_gradient(a, b)
+    grad_card = get_batch_double_blurred_image_gradient(a.to(dev), b.to(dev)).cpu()
+    grad_rel = _train_rel(grad_card, grad_cpu)
+    work = os.path.join(OUT, "phase15_packets")
+    shutil.rmtree(work, ignore_errors=True)
+    generate(work, num_packets=2, height=H, width=W)
+    tools_out = []
+    for tool, argv in ((gen_phy_att, ["--data_dir", work]),
+                       (time_voxel_stat_calc, ["--data_dir", work, "--max_files", "2"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            tool.main(argv)
+        tools_out.append(buf.getvalue().strip().replace("\n", " | "))
+    with open(os.path.join(work, sorted(os.listdir(work))[0]), "rb") as f:
+        att = pickle.load(f)["physical_att"]
+    shutil.rmtree(work, ignore_errors=True)
+    rec = np.zeros(1000, events.EVENT_DTYPE)
+    rec["timestamp"] = np.arange(1000)
+    stream = events.from_recarray(rec, 4096)
+    soa = [np.random.RandomState(19).randint(0, 30000, (16, 4096)).astype(np.int32)]
+    soa[0].sort(axis=1)
+    soa += [np.random.RandomState(20).randint(0, lim, (16, 4096)).astype(dt)
+            for lim, dt in ((W, np.int16), (H, np.int16), (2, np.int8))]
+    counts = np.random.RandomState(21).randint(0, 4096, 16).astype(np.int32)
+    offs = (np.arange(16) * 33333).astype(np.int64)
+    packed = native.pack_event_stream(*soa, counts, offs)
+    packed_np = native._pack_event_stream_np(*soa, counts, offs,
+                                             np.empty(int(counts.sum()), rec.dtype))
+    log(f"[models] get_batch_double_blurred_image_gradient {tuple(a.shape)}: card vs CPU "
+        f"{grad_rel:.3e} of the largest (limit {GRAD_REL_TOL:g}); gen_phy_att and "
+        f"time_voxel_stat_calc on 2 {H}x{W} packets: {tools_out}, physical_att "
+        f"{att.shape} in [{att.min():.3f}, {att.max():.3f}]; from_recarray on "
+        f"{stream.t_us.device}; pack_event_stream native {native.native_available()} == numpy "
+        f"on {len(packed)} events: {packed.tobytes() == packed_np.tobytes()}, first_inversion "
+        f"{native.first_inversion(packed) if len(packed) else -1} ({time.time() - t0:.1f} s)")
+    if (grad_rel > GRAD_REL_TOL or att.shape != (16, -(-H // 8), -(-W // 8))
+            or not np.isfinite(att).all() or stream.t_us.device.type != torch.device(DEVICE).type
+            or packed.tobytes() != packed_np.tobytes() or len(packed) != int(counts.sum())
+            or native.first_inversion(packed) != -1):
+        raise AssertionError("the utilities on the card disagree with the CPU or the host")
+
+
+def models_phase(torch, np, dev, counted, smi):
+    """Phase 15: the remaining models and utilities, counted (no port
+    kernel may launch: they run on cuDNN convs, torch.sort and
+    scatter_reduce). Returns each model's ms and peak GiB."""
+    def run():
+        out = models_2d_phase(torch, np, dev, smi)
+        out["graph pooling"] = graph_phase(torch, np, dev, smi)
+        eventgan_utils_phase(torch, np, dev, smi)
+        return out
+
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    out = counted("phase 15", (), run)
+    launched = {k: c for k, c in counted.by_path["phase 15"].items() if c}
+    log(f"[models] phase 15 in {time.time() - t0:.1f} s; port kernels launched: "
+        f"{launched or 'none'}")
+    if launched:
+        raise AssertionError(f"phase 15 launched port kernels: {launched}")
+    return out
+
+
 def main():
     import torch
 
@@ -2156,6 +2551,9 @@ def main():
     train_step_phase(torch, np, dev, smi)
     train_run_phase(torch, np, counted, smi)
 
+    # 15. the remaining models and utilities at full width, counted
+    models_phase(torch, np, dev, counted, smi)
+
     # 6. stage 1 on the card against the CPU: the full-width model, seeded
     # weights, one 16-frame window of 64x96 (TF32 off; cuDNN and the CPU
     # sum the conv products in other orders)
@@ -2197,6 +2595,7 @@ def main():
                         "launches_by_path": {p: c[name] for p, c in counted.by_path.items()
                                              if c[name]},
                         "training_launches": counted.by_path["training"][name],
+                        "phase15_launches": counted.by_path["phase 15"][name],
                         "max_abs_err": errs[name],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r.get("bound_by", "bytes"),

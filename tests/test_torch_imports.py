@@ -19,6 +19,7 @@ MODULES = [
     "v2ce_toolbox_tpu_torch.data",
     "v2ce_toolbox_tpu_torch.data.dummy_data_gen",
     "v2ce_toolbox_tpu_torch.data.event_chunk",
+    "v2ce_toolbox_tpu_torch.data.eventgan",
     "v2ce_toolbox_tpu_torch.data.event_pack_dataset",
     "v2ce_toolbox_tpu_torch.data.loader",
     "v2ce_toolbox_tpu_torch.data.mvsec",
@@ -27,8 +28,12 @@ MODULES = [
     "v2ce_toolbox_tpu_torch.io.video",
     "v2ce_toolbox_tpu_torch.models",
     "v2ce_toolbox_tpu_torch.models.fastflownet",
+    "v2ce_toolbox_tpu_torch.models.graph_pool",
     "v2ce_toolbox_tpu_torch.models.layers",
+    "v2ce_toolbox_tpu_torch.models.resnet",
+    "v2ce_toolbox_tpu_torch.models.unet2d",
     "v2ce_toolbox_tpu_torch.models.unet3d",
+    "v2ce_toolbox_tpu_torch.models.unet_plain",
     "v2ce_toolbox_tpu_torch.models.v2ce3d",
     "v2ce_toolbox_tpu_torch.ops",
     "v2ce_toolbox_tpu_torch.ops._cuda",
@@ -51,9 +56,11 @@ MODULES = [
     "v2ce_toolbox_tpu_torch.pipeline.windows",
     "v2ce_toolbox_tpu_torch.tools",
     "v2ce_toolbox_tpu_torch.tools.baseline_metric",
+    "v2ce_toolbox_tpu_torch.tools.gen_phy_att",
     "v2ce_toolbox_tpu_torch.tools.overfit_demo",
     "v2ce_toolbox_tpu_torch.tools.perf_probe",
     "v2ce_toolbox_tpu_torch.tools.stage2_eval",
+    "v2ce_toolbox_tpu_torch.tools.time_voxel_stat_calc",
     "v2ce_toolbox_tpu_torch.tools.vis_tools",
     "v2ce_toolbox_tpu_torch.train",
     "v2ce_toolbox_tpu_torch.train.gan",
@@ -64,6 +71,8 @@ MODULES = [
     "v2ce_toolbox_tpu_torch.train.step",
     "v2ce_toolbox_tpu_torch.train.voxel_encoder",
     "v2ce_toolbox_tpu_torch.utils.checkpoint",
+    "v2ce_toolbox_tpu_torch.utils.image_derivative",
+    "v2ce_toolbox_tpu_torch.utils.physical_att",
     "v2ce_toolbox_tpu_torch.utils.runtime",
     "v2ce_toolbox_tpu_torch.utils.v2e",
     "v2ce_toolbox_tpu_torch.utils.weights",

@@ -3,7 +3,8 @@
 On the device an event stream is a struct of per-frame fixed-capacity
 tensors with a validity count and an overflow counter (`EventStream`); the
 on-disk record is the structured dtype of the CLI's npz output
-(`EVENT_DTYPE`). Conversion happens only at the host boundary.
+(`EVENT_DTYPE`). Conversion happens only at the host boundary:
+`to_recarrays` from the device, `from_recarray` to it.
 """
 
 from __future__ import annotations
@@ -60,3 +61,21 @@ def to_recarrays(stream: EventStream, t0_offsets_us=None) -> List[np.recarray]:
 def concatenate_recarrays(recs: List[np.recarray]) -> np.ndarray:
     """Per-frame recarrays -> one stream."""
     return np.concatenate(recs)
+
+
+def from_recarray(rec: np.ndarray, capacity: int, device="cuda") -> EventStream:
+    """One reference recarray -> a 1-frame EventStream of the given
+    capacity on `device` (the card unless the caller names another): the
+    first `capacity` events, the rest counted in `dropped`."""
+    n = min(len(rec), capacity)
+    t = np.full((1, capacity), np.iinfo(np.int32).max, np.int32)
+    x = np.zeros((1, capacity), np.int16)
+    y = np.zeros((1, capacity), np.int16)
+    p = np.zeros((1, capacity), np.int8)
+    t[0, :n] = rec["timestamp"][:n]
+    x[0, :n] = rec["x"][:n]
+    y[0, :n] = rec["y"][:n]
+    p[0, :n] = rec["polarity"][:n]
+    count = np.asarray([n], np.int32)
+    dropped = np.asarray([max(0, len(rec) - capacity)], np.int32)
+    return EventStream(*(torch.from_numpy(a).to(device) for a in (t, x, y, p, count, dropped)))

@@ -1,12 +1,15 @@
-"""ctypes binding of the native event-IO library's voxel splat
-(native/event_io.cpp `v2ce_voxel_splat`), the data pipeline's hot loop.
+"""ctypes bindings of the native event-IO library (native/event_io.cpp):
+the voxel splat `v2ce_voxel_splat` (the data pipeline's hot loop), the
+stream packer `v2ce_pack_event_stream` (per-frame SoA buffers -> one
+stream of the 13-byte EVENT_DTYPE records, in one multithreaded pass) and
+the sort check `v2ce_first_inversion`.
 
 From `v2ce_toolbox_tpu/io/native.py`, with its own build location: the
 library is compiled on demand with g++ into the port's build directory
 (`csrc/build/`, or `$V2CE_KERNEL_BUILD_DIR`) under a name that hashes the
-source, and the caller falls back to numpy when there is no toolchain.
-The library's stream packer and sort check are not bound: the port
-decodes its event streams in `pipeline/driver.py`.
+source, and every entry falls back to numpy when there is no toolchain.
+The port's CLI decodes its event streams in `pipeline/driver.py`; the
+packer is for callers holding per-frame host buffers.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import tempfile
 from typing import Optional
 
 import numpy as np
+
+from v2ce_toolbox_tpu_torch.events import EVENT_DTYPE
 
 logger = logging.getLogger(__name__)
 
@@ -64,6 +69,15 @@ def _load() -> Optional[ctypes.CDLL]:
         if not op.exists(so_path):
             _build(so_path)
         lib = ctypes.CDLL(so_path)
+        lib.v2ce_pack_event_stream.restype = ctypes.c_int64
+        lib.v2ce_pack_event_stream.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_int32,
+        ]
+        lib.v2ce_first_inversion.restype = ctypes.c_int64
+        lib.v2ce_first_inversion.argtypes = [ctypes.c_void_p, ctypes.c_int64]
         lib.v2ce_voxel_splat.restype = None
         lib.v2ce_voxel_splat.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -100,3 +114,53 @@ def voxel_splat(events: np.ndarray, vol: np.ndarray) -> bool:
         vol.ctypes.data_as(ctypes.c_void_p))
     return True
 
+
+
+def pack_event_stream(t_us: np.ndarray, x: np.ndarray, y: np.ndarray, p: np.ndarray,
+                      counts: np.ndarray, frame_offsets_us: np.ndarray,
+                      num_threads: int = 4) -> np.ndarray:
+    """Per-frame (B, E) SoA buffers (int32 t, int16 x / y, int8 p), their
+    (B,) int32 counts and (B,) int64 frame offsets -> one concatenated
+    EVENT_DTYPE stream, t + offset in int64."""
+    b, _ = t_us.shape
+    total = int(counts.sum())
+    out = np.empty(total, dtype=EVENT_DTYPE)
+    lib = _load()
+    if lib is not None and total:
+        t_us = np.ascontiguousarray(t_us, np.int32)
+        x = np.ascontiguousarray(x, np.int16)
+        y = np.ascontiguousarray(y, np.int16)
+        p = np.ascontiguousarray(p, np.int8)
+        counts = np.ascontiguousarray(counts, np.int32)
+        offs = np.ascontiguousarray(frame_offsets_us, np.int64)
+        n = lib.v2ce_pack_event_stream(
+            t_us.ctypes.data, x.ctypes.data, y.ctypes.data, p.ctypes.data,
+            counts.ctypes.data, offs.ctypes.data, b, t_us.shape[1],
+            out.ctypes.data_as(ctypes.c_void_p), num_threads)
+        if n != total:
+            raise RuntimeError(f"v2ce_pack_event_stream wrote {n} events of {total}")
+        return out
+    return _pack_event_stream_np(t_us, x, y, p, counts, frame_offsets_us, out)
+
+
+def _pack_event_stream_np(t_us, x, y, p, counts, frame_offsets_us, out):
+    pos = 0
+    for f in range(t_us.shape[0]):
+        n = int(counts[f])
+        out["timestamp"][pos:pos + n] = t_us[f, :n].astype(np.int64) + int(frame_offsets_us[f])
+        out["x"][pos:pos + n] = x[f, :n]
+        out["y"][pos:pos + n] = y[f, :n]
+        out["polarity"][pos:pos + n] = p[f, :n]
+        pos += n
+    return out
+
+
+def first_inversion(stream: np.ndarray) -> int:
+    """Index of the first timestamp inversion in an EVENT_DTYPE stream, -1
+    if it is sorted."""
+    lib = _load()
+    if lib is not None:
+        s = np.ascontiguousarray(stream)
+        return int(lib.v2ce_first_inversion(s.ctypes.data_as(ctypes.c_void_p), len(s)))
+    bad = np.nonzero(np.diff(stream["timestamp"]) < 0)[0]
+    return int(bad[0] + 1) if len(bad) else -1

@@ -15,6 +15,11 @@ to `compute_dtype` and returns f32 (the bias is added in f32), and each
 BatchNorm computes in f32 and returns `compute_dtype`, so the activations
 between layers are bf16 in the bf16 model. Parameters, the spectral-norm
 sigma and the BN statistics stay f32.
+
+The convs, the spectral norm and the BatchNorm take any spatial rank, as
+the JAX package's `Conv`, `SNConv` and `BatchNorm` do: `Conv2d`,
+`SNConv2d` and `BatchNorm2d` (NCHW) share the 3D code, for the 2D UNet
+(`models/unet2d.py`).
 """
 
 from __future__ import annotations
@@ -35,13 +40,17 @@ def _triple(v) -> Tuple[int, int, int]:
 
 def _apply_conv(x: torch.Tensor, w: torch.Tensor, stride, padding,
                 compute_dtype: torch.dtype, conv_impl: str) -> torch.Tensor:
-    """Conv of NCDHW x by a (Co, C, kd, kh, kw) kernel, both cast to
-    compute_dtype, f32 out, no bias. conv_impl 'pallas' sends the convs
-    that the JAX package's guard sends to its Pallas kernel (3x3x3, stride
-    1, padding 1, cin >= 16; `ops/research.py:115-119`) to K9, on a
-    channels-last view; every other conv goes to F.conv3d. F.conv3d
-    returns compute_dtype, so a bf16 conv there rounds its f32 sums to
-    bf16 before the cast back, where XLA returns them in f32."""
+    """Conv of NCDHW x by a (Co, C, kd, kh, kw) kernel (or of NCHW x by a
+    (Co, C, kh, kw) one), both cast to compute_dtype, f32 out, no bias.
+    conv_impl 'pallas' sends the 3D convs that the JAX package's guard
+    sends to its Pallas kernel (3x3x3, stride 1, padding 1, cin >= 16;
+    `ops/research.py:115-119`) to K9, on a channels-last view; every other
+    conv goes to F.conv3d (F.conv2d). These return compute_dtype, so a
+    bf16 conv there rounds its f32 sums to bf16 before the cast back,
+    where XLA returns them in f32."""
+    if w.dim() == 4:
+        return F.conv2d(x.to(compute_dtype), w.to(compute_dtype), None, stride,
+                        padding).float()
     if (conv_impl == "pallas" and tuple(w.shape[2:]) == (3, 3, 3)
             and _triple(stride) == (1, 1, 1) and _triple(padding) == (1, 1, 1)
             and x.shape[1] >= 16):
@@ -53,14 +62,15 @@ def _apply_conv(x: torch.Tensor, w: torch.Tensor, stride, padding,
                     padding).float()
 
 
-class BatchNorm3d(nn.BatchNorm3d):
-    """nn.BatchNorm3d (same parameters, buffers and eval path) whose
-    train-mode forward is flax's `nn.BatchNorm`, as the JAX package trains
-    it: the batch variance is mean(x^2) - mean(x)^2, clipped at 0, and the
-    running variance moves toward that biased variance (torch's own moves
-    toward the unbiased one, n/(n-1) times larger). The output is
-    (x - mean) * (rsqrt(var + eps) * weight) + bias, in flax's op order;
-    gradients flow through the batch mean and variance."""
+class _FlaxTrainBN:
+    """The train-mode forward of flax's `nn.BatchNorm`, as the JAX package
+    trains it, over a torch BatchNorm of any rank (same parameters,
+    buffers and eval path): the batch variance is mean(x^2) - mean(x)^2,
+    clipped at 0, and the running variance moves toward that biased
+    variance (torch's own moves toward the unbiased one, n/(n-1) times
+    larger). The output is (x - mean) * (rsqrt(var + eps) * weight) + bias,
+    in flax's op order; gradients flow through the batch mean and
+    variance."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -78,13 +88,27 @@ class BatchNorm3d(nn.BatchNorm3d):
         return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
-def _bn(bn: nn.BatchNorm3d, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+class BatchNorm3d(_FlaxTrainBN, nn.BatchNorm3d):
+    """nn.BatchNorm3d with flax's train-mode forward (`_FlaxTrainBN`)."""
+
+
+class BatchNorm2d(_FlaxTrainBN, nn.BatchNorm2d):
+    """nn.BatchNorm2d with flax's train-mode forward (`_FlaxTrainBN`); its
+    eval path is nn.BatchNorm2d's, which takes the 4-D input that
+    nn.BatchNorm3d's refuses."""
+
+
+_BATCHNORM = {2: BatchNorm2d, 3: BatchNorm3d}
+
+
+def _bn(bn: nn.Module, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """BatchNorm in f32, output in compute_dtype."""
     return bn(x.float()).to(compute_dtype)
 
 
-def _bias(b: torch.Tensor) -> torch.Tensor:
-    return b.view(1, -1, 1, 1, 1)
+def _bias(b: torch.Tensor, ndim: int = 3) -> torch.Tensor:
+    """A (C,) bias broadcast over NC and `ndim` spatial axes."""
+    return b.view(1, -1, *(1,) * ndim)
 
 
 def _l2normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -96,11 +120,11 @@ class _SNParams(nn.Module):
     wrapped module): weight_bar, the power-iteration vectors weight_u /
     weight_v, and the bias if any."""
 
-    def __init__(self, cin: int, cout: int, k: int, bias: bool):
+    def __init__(self, cin: int, cout: int, k: int, bias: bool, ndim: int = 3):
         super().__init__()
-        self.weight_bar = nn.Parameter(torch.empty(cout, cin, k, k, k))
+        self.weight_bar = nn.Parameter(torch.empty(cout, cin, *(k,) * ndim))
         self.weight_u = nn.Parameter(torch.empty(cout), requires_grad=False)
-        self.weight_v = nn.Parameter(torch.empty(cin * k ** 3), requires_grad=False)
+        self.weight_v = nn.Parameter(torch.empty(cin * k ** ndim), requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
 
@@ -113,11 +137,13 @@ class SNConv3d(nn.Module):
     package's SNConv; the iteration starts from a copy of the stored u, so
     writing the new vectors back leaves the tensors autograd saved intact."""
 
+    ndim = 3
+
     def __init__(self, cin: int, cout: int, k: int, stride=1, padding=0,
                  bias: bool = True, compute_dtype: torch.dtype = torch.float32,
                  conv_impl: str = "xla"):
         super().__init__()
-        self.module = _SNParams(cin, cout, k, bias)
+        self.module = _SNParams(cin, cout, k, bias, self.ndim)
         self.stride = stride
         self.padding = padding
         self.compute_dtype = compute_dtype
@@ -138,11 +164,18 @@ class SNConv3d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = _apply_conv(x, self.weight(), self.stride, self.padding,
                         self.compute_dtype, self.conv_impl)
-        return y if self.module.bias is None else y + _bias(self.module.bias)
+        return y if self.module.bias is None else y + _bias(self.module.bias, self.ndim)
 
 
-class Conv3d(nn.Conv3d):
-    """nn.Conv3d (same parameters) through `_apply_conv`: f32 out."""
+class SNConv2d(SNConv3d):
+    """SNConv3d's spectral norm on a 2D conv (NCHW)."""
+
+    ndim = 2
+
+
+class _ApplyConv:
+    """A torch conv of any rank (same parameters) through `_apply_conv`:
+    f32 out."""
 
     def __init__(self, cin: int, cout: int, k: int, stride=1, padding=0,
                  bias: bool = True, compute_dtype: torch.dtype = torch.float32,
@@ -154,13 +187,24 @@ class Conv3d(nn.Conv3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = _apply_conv(x, self.weight, self.stride, self.padding,
                         self.compute_dtype, self.conv_impl)
-        return y if self.bias is None else y + _bias(self.bias)
+        return y if self.bias is None else y + _bias(self.bias, x.dim() - 2)
+
+
+class Conv3d(_ApplyConv, nn.Conv3d):
+    """nn.Conv3d through `_apply_conv`."""
+
+
+class Conv2d(_ApplyConv, nn.Conv2d):
+    """nn.Conv2d through `_apply_conv`."""
+
+
+_CONV = {(3, False): Conv3d, (3, True): SNConv3d, (2, False): Conv2d, (2, True): SNConv2d}
 
 
 def _conv(cin: int, cout: int, k: int, stride, padding, bias: bool, sn: bool,
-          compute_dtype: torch.dtype = torch.float32, conv_impl: str = "xla"):
-    cls = SNConv3d if sn else Conv3d
-    return cls(cin, cout, k, stride, padding, bias, compute_dtype, conv_impl)
+          compute_dtype: torch.dtype = torch.float32, conv_impl: str = "xla",
+          ndim: int = 3):
+    return _CONV[ndim, sn](cin, cout, k, stride, padding, bias, compute_dtype, conv_impl)
 
 
 def _activation(name: Optional[str]):
@@ -203,24 +247,27 @@ class ConvLayer3D(nn.Module):
 
 class ResidualBlock3D(nn.Module):
     """conv-bn-relu-conv-bn plus a projection shortcut (1x1x1 conv with bias
-    and BN) on every block, as the reference builds it."""
+    and BN) on every block, as the reference builds it. `ndim` is set by
+    the 2D block (`models/unet2d.ResidualBlock2D`)."""
+
+    ndim = 3
 
     def __init__(self, cin: int, cout: int, stride: Tuple[int, int, int] = (1, 1, 1),
                  norm: Optional[str] = None, sn: bool = False,
                  compute_dtype: torch.dtype = torch.float32, conv_impl: str = "xla"):
         super().__init__()
-        bias = norm != "BN"
+        bias, nd, bn = norm != "BN", self.ndim, _BATCHNORM[self.ndim]
         self.compute_dtype = compute_dtype
-        self.conv1 = _conv(cin, cout, 3, stride, 1, bias, sn, compute_dtype, conv_impl)
-        self.conv2 = _conv(cout, cout, 3, 1, 1, bias, sn, compute_dtype, conv_impl)
+        self.conv1 = _conv(cin, cout, 3, stride, 1, bias, sn, compute_dtype, conv_impl, nd)
+        self.conv2 = _conv(cout, cout, 3, 1, 1, bias, sn, compute_dtype, conv_impl, nd)
         with_bn = norm in ("BN", "IN")
-        self.bn1 = BatchNorm3d(cout, eps=1e-5, momentum=0.1) if with_bn else None
-        self.bn2 = BatchNorm3d(cout, eps=1e-5, momentum=0.1) if with_bn else None
+        self.bn1 = bn(cout, eps=1e-5, momentum=0.1) if with_bn else None
+        self.bn2 = bn(cout, eps=1e-5, momentum=0.1) if with_bn else None
         self.downsample = nn.Sequential(
-            Conv3d(cin, cout, 1, stride, 0, True, compute_dtype),
-            BatchNorm3d(cout, eps=1e-5, momentum=0.1))
+            _conv(cin, cout, 1, stride, 0, True, False, compute_dtype, ndim=nd),
+            bn(cout, eps=1e-5, momentum=0.1))
 
-    def _norm(self, bn: Optional[nn.BatchNorm3d], x: torch.Tensor) -> torch.Tensor:
+    def _norm(self, bn: Optional[nn.Module], x: torch.Tensor) -> torch.Tensor:
         return x if bn is None else _bn(bn, x, self.compute_dtype)
 
     def _tail(self, out: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
@@ -276,10 +323,11 @@ class DecoderResidualBlock3D(ResidualBlock3D):
 
 
 def upsample_nearest_to(x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
-    """Nearest upsample of (B, C, L, H, W) to a target (H, W) with the
-    index convention src = floor(dst * in / out), in integer arithmetic."""
+    """Nearest upsample of (B, C, L, H, W), or of (B, C, H, W), to a target
+    (H, W) with the index convention src = floor(dst * in / out), in
+    integer arithmetic."""
     th, tw = target_hw
     h, w = x.shape[-2:]
     hi = torch.arange(th, device=x.device) * h // th
     wi = torch.arange(tw, device=x.device) * w // tw
-    return x.index_select(3, hi).index_select(4, wi)
+    return x.index_select(x.dim() - 2, hi).index_select(x.dim() - 1, wi)

@@ -1,10 +1,12 @@
-"""Event-frame rendering: channel-major voxels -> displayable uint8 frames.
+"""Event-frame rendering: voxels -> displayable uint8 frames.
 
 Sum the voxel grid over time bins, map polarities to R/G (blue zero) or
 replicate the polarity sum to gray, bound values by min(percentile of the
 nonzero values, ceil), clip-normalize and scale to uint8. The reductions
 and the bound run on the voxels' device; only the content channels come
-to the host.
+to the host. `render_event_frames` takes channels-last voxels (the
+JAX package's entry point, numpy beyond 64 frames); the driver's paths
+take channel-major voxels or per-polarity sums.
 """
 
 from __future__ import annotations
@@ -15,6 +17,40 @@ import torch
 # inputs up to this many (virtual 3-channel) values take the exact
 # interpolated percentile; beyond it a count-threshold bisection
 _EXACT_MAX = 1 << 21
+
+
+# clips longer than this render on the host in numpy
+_DEVICE_MAX_FRAMES = 64
+
+
+def render_event_frames(voxels, *, ceil: float = 10.0, upper_bound_percentile: int = 98,
+                        keep_polarity: bool = True) -> np.ndarray:
+    """Channels-last (T, H, W, 20) voxels (c = p*10 + bin, p = 0 the ON
+    polarity) -> (T, H, W, 3) uint8 frames. Up to 64 frames on the
+    voxels' device; longer clips on the host in numpy (np.percentile),
+    as the JAX package does."""
+    t, h, w, c = voxels.shape
+    if t <= _DEVICE_MAX_FRAMES:
+        v = torch.as_tensor(voxels).reshape(t, h, w, 2, c // 2)
+        if keep_polarity:
+            sums = v.sum(dim=-1).permute(0, 3, 1, 2)            # (T, 2, H, W)
+        else:
+            sums = v.sum(dim=(-2, -1))[:, None]                 # (T, 1, H, W)
+        out = _finish_render(sums, ceil=float(ceil),
+                             upper_bound_percentile=upper_bound_percentile,
+                             keep_polarity=keep_polarity)
+        return _assemble_channels(out.cpu().numpy(), keep_polarity)
+    v = (voxels.cpu().numpy() if isinstance(voxels, torch.Tensor)
+         else np.asarray(voxels)).reshape(t, h, w, 2, c // 2)
+    if keep_polarity:
+        efs = np.concatenate([v.sum(axis=-1), np.zeros((t, h, w, 1), v.dtype)], axis=-1)
+    else:
+        efs = np.repeat(v.sum(axis=(-2, -1))[..., None], 3, axis=-1)
+    nz = efs[efs > 0]
+    bound = np.percentile(nz, upper_bound_percentile) if nz.size else 1.0
+    bound = max(min(bound, float(ceil)), 1e-6)
+    efs = np.clip(efs, 0, bound) / bound
+    return (efs * 255.0).astype(np.uint8)
 
 
 def render_event_frames_cmajor(voxels: torch.Tensor, *, ceil: float = 10.0,

@@ -111,7 +111,10 @@ def check_args(args) -> None:
     if args.num_processes > 1 or args.coordinator:
         raise NotImplementedError(f"--num_processes/--coordinator {MULTI_DEVICE}")
     if args.model_name != "v2ce_3d":
-        raise NotImplementedError(f"--model_name {args.model_name!r}: only v2ce_3d is ported")
+        raise NotImplementedError(
+            f"--model_name {args.model_name!r}: the JAX trainer builds V2ce3d whatever "
+            "--model_name names (train_main.py:82,167), so the port trains only v2ce_3d and "
+            "refuses other names rather than train a model the flag does not name")
     if args.dataset != "event_pack_dataset":
         raise NotImplementedError(f"--dataset {args.dataset!r}: only event_pack_dataset is "
                                   "ported")

@@ -8,12 +8,16 @@ the port's state_dict (reference torch key names).
 `block_from_jax_variables` and `conv_layer_from_jax_variables` do it for
 one ResidualBlock3D or ConvLayer3D, `discriminator_from_jax_params` and
 `voxel_encoder_from_jax_variables` for the training path's
-PatchDiscriminator and VoxelEncoder, and `fastflownet_from_jax_variables`
-for FastFlowNet; `load_fastflownet` reads the port's own FastFlowNet `.pt`.
+PatchDiscriminator and VoxelEncoder, `fastflownet_from_jax_variables`
+for FastFlowNet, `unet2d_from_jax_variables` for V2ce2d and UNet2D,
+`unet_plain_from_jax_variables` for UNetPlain3D and
+`resnet_from_jax_variables` for ResNet and ResNetDiscriminator;
+`load_fastflownet` reads the port's own FastFlowNet `.pt`.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import os.path as op
@@ -55,21 +59,38 @@ def _conv_sd(sd: Dict, tkey: str, p: Mapping, s: Optional[Mapping]) -> None:
 
 
 def _bn_sd(sd: Dict, tkey: str, p: Mapping, s: Mapping) -> None:
-    sd[f"{tkey}.weight"] = np.asarray(p["bn"]["scale"])
-    sd[f"{tkey}.bias"] = np.asarray(p["bn"]["bias"])
-    sd[f"{tkey}.running_mean"] = np.asarray(s["bn"]["mean"])
-    sd[f"{tkey}.running_var"] = np.asarray(s["bn"]["var"])
+    """The repo's BatchNorm wrapper (its flax BatchNorm at `bn`), or with
+    no `bn` level flax's own nn.BatchNorm."""
+    p, s = p.get("bn", p), s.get("bn", s)
+    sd[f"{tkey}.weight"] = np.asarray(p["scale"])
+    sd[f"{tkey}.bias"] = np.asarray(p["bias"])
+    sd[f"{tkey}.running_mean"] = np.asarray(s["mean"])
+    sd[f"{tkey}.running_var"] = np.asarray(s["var"])
     sd[f"{tkey}.num_batches_tracked"] = np.zeros((), np.int64)
 
 
 def _block_sd(sd: Dict, tkey: str, p: Mapping, s: Mapping, q: Mapping) -> None:
-    """A ResidualBlock3D: params p, batch_stats s, sn q."""
+    """A ResidualBlock3D or ResidualBlock2D: params p, batch_stats s, sn q
+    (bn1 and bn2 only where the block has a norm)."""
     _conv_sd(sd, f"{tkey}conv1", p["conv1"], q.get("conv1"))
     _conv_sd(sd, f"{tkey}conv2", p["conv2"], q.get("conv2"))
-    _bn_sd(sd, f"{tkey}bn1", p["bn1"], s["bn1"])
-    _bn_sd(sd, f"{tkey}bn2", p["bn2"], s["bn2"])
+    for bn in ("bn1", "bn2"):
+        if bn in p:
+            _bn_sd(sd, f"{tkey}{bn}", p[bn], s[bn])
     _conv_sd(sd, f"{tkey}downsample.0", p["downsample_conv"], None)
     _bn_sd(sd, f"{tkey}downsample.1", p["downsample_bn"], s["downsample_bn"])
+
+
+def _conv_layer_sd(sd: Dict, tkey: str, p: Mapping, s: Mapping, q: Mapping,
+                   conv: str) -> None:
+    """A ConvLayer3D (conv = 'conv3d') or ConvLayer2D ('conv2d')."""
+    _conv_sd(sd, f"{tkey}{conv}", p["conv"], q.get("conv"))
+    if "norm" in p:
+        _bn_sd(sd, f"{tkey}norm_layer", p["norm"], s["norm"])
+
+
+def _count(params: Mapping, prefix: str) -> int:
+    return sum(k.startswith(prefix) for k in params)
 
 
 def block_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -83,10 +104,79 @@ def block_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Te
 
 def conv_layer_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax ConvLayer3D variables -> the port's ConvLayer3D state_dict."""
-    p, sd = variables["params"], {}
-    _conv_sd(sd, "conv3d", p["conv"], variables.get("sn", {}).get("conv"))
-    if "norm" in p:
-        _bn_sd(sd, "norm_layer", p["norm"], variables["batch_stats"]["norm"])
+    sd: Dict[str, np.ndarray] = {}
+    _conv_layer_sd(sd, "", variables["params"], variables.get("batch_stats", {}),
+                   variables.get("sn", {}), "conv3d")
+    return _to_torch(sd)
+
+
+def _unet_sd(variables: Mapping[str, Any], top: str, head, body, conv: str
+             ) -> Dict[str, torch.Tensor]:
+    """The UNets' common walk: the flax tree under `top` (if any) -> the
+    port's keys under `top.`; `head` and `body` convert the head and the
+    encoders / decoders (each (sd, tkey, p, s, q)), the resblocks are
+    residual blocks and the prediction heads conv layers."""
+    params, stats, sn = (variables.get(c, {}) for c in ("params", "batch_stats", "sn"))
+    if top:
+        params, stats, sn = params[top], stats.get(top, {}), sn.get(top, {})
+    pre = f"{top}." if top else ""
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(fn, tkey, name):
+        fn(sd, f"{pre}{tkey}.", params[name], stats.get(name, {}), sn.get(name, {}))
+
+    walk(head, "head", "head")
+    n_enc = _count(params, "encoder_")
+    for i in range(n_enc):
+        walk(body, f"encoders.{i}", f"encoder_{i}")
+    for i in range(_count(params, "resblock_")):
+        walk(_block_sd, f"resblocks.{i}", f"resblock_{i}")
+    for i in range(n_enc):
+        walk(body, f"decoders.{i}", f"decoder_{i}")
+    pred = functools.partial(_conv_layer_sd, conv=conv)
+    if "pred" in params:
+        walk(pred, "pred", "pred")
+    for i in range(_count(params, "pred_")):
+        walk(pred, f"preds.{i}", f"pred_{i}")
+    return _to_torch(sd)
+
+
+def unet2d_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax V2ce2d variables (the UNet under 'unet') or UNet2D variables ->
+    the port's state_dict: every parameter, BN statistic and spectral-norm
+    vector, the multi heads' included."""
+    top = "unet" if "unet" in variables["params"] else ""
+    return _unet_sd(variables, top, _block_sd, _block_sd, "conv2d")
+
+
+def unet_plain_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax UNetPlain3D variables -> the port's UNetPlain3D state_dict."""
+    layer = functools.partial(_conv_layer_sd, conv="conv3d")
+    return _unet_sd(variables, "", layer, layer, "conv3d")
+
+
+def resnet_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ResNet or ResNetDiscriminator (the ResNet under 'resnet')
+    variables -> the port's state_dict. Its convs and BNs are flax's own
+    (kernel and bias; scale, bias, mean, var with no `bn` level); the
+    Dense head's kernel (in, out) is the Linear weight transposed."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    pre = ""
+    if "resnet" in params:
+        params, stats, pre = params["resnet"], stats.get("resnet", {}), "resnet."
+    sd: Dict[str, np.ndarray] = {}
+    _conv_sd(sd, f"{pre}stem", params["stem"], None)
+    _bn_sd(sd, f"{pre}stem_bn", params["stem_bn"], stats["stem_bn"])
+    for name in sorted(k for k in params if k.startswith("stage")):
+        p, s, tkey = params[name], stats[name], f"{pre}blocks.{name}"
+        for conv in ("conv1", "conv2", "downsample_conv"):
+            if conv in p:
+                _conv_sd(sd, f"{tkey}.{conv}", p[conv], None)
+        for bn in ("bn1", "bn2", "downsample_bn"):
+            if bn in p:
+                _bn_sd(sd, f"{tkey}.{bn}", p[bn], s[bn])
+    sd[f"{pre}fc.weight"] = np.ascontiguousarray(np.asarray(params["fc"]["kernel"]).T)
+    sd[f"{pre}fc.bias"] = np.asarray(params["fc"]["bias"])
     return _to_torch(sd)
 
 
@@ -158,22 +248,22 @@ def voxel_encoder_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, 
 
 
 def init_weights(model: nn.Module, seed: int = 0) -> None:
-    """Seeded random init: kaiming-normal (a=10, fan_in) conv kernels, zero
-    biases, unit BN scale and variance, zero BN shift and mean, and unit
-    random spectral-norm vectors."""
+    """Seeded random init: kaiming-normal (a=10, fan_in) conv kernels and
+    linear weights, zero biases, unit BN scale and variance, zero BN shift
+    and mean, and unit random spectral-norm vectors (2D and 3D alike)."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, SNConv3d):
+            if isinstance(m, SNConv3d):                 # SNConv2d too
                 p = m.module
                 tensors = [p.weight_bar]
                 if p.bias is not None:
                     p.bias.zero_()
-            elif isinstance(m, nn.Conv3d):
+            elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
                 tensors = [m.weight]
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm3d):
+            elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
                 m.reset_parameters()
                 continue
             else:
