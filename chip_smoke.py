@@ -189,6 +189,24 @@ Phases, any failure exits non-zero before the result lines:
      gradient on (16, 260, 346, 1) card vs CPU, the gen_phy_att and
      time_voxel_stat_calc tools on two 260x346 packets, from_recarray on
      the card, and the native stream packer against numpy, byte for byte.
+ 16. data parallelism (`parallel/mesh.py`), each rank a spawned process on
+     its card, `run` and `run_streaming` of the center main path on phase
+     4's clip (a longer one where more than two GPUs need a window and a
+     chunk each) against one rank without a mesh: (a) a world of every
+     visible GPU over NCCL; (b) two ranks, NCCL on two GPUs, else gloo
+     with both on cuda:0 (NCCL refuses two ranks on one device). Each
+     world's npz stream and preview byte-identical to one rank's, rank 0
+     alone writing, and every rank's launch counters (reset just before
+     each run, read just after; joined to the counted paths as `phase 16
+     ...`) showing its own K1, K2 and K3 launches; each rank's frames/s.
+     (b) also runs one train step at train.main's defaults on a global
+     batch of DP_TRAIN_SHAPE, 2 items a rank, held against one rank's step
+     on the whole batch with phase 14's tolerances, and the two ranks'
+     states (parameters, BN statistics, SN vectors, Adam moments, the
+     discriminator) bit for bit against each other; (c) train.main over
+     every visible GPU, 2 steps and the eval on phase 14's packets, each
+     rank's ms a step. A rank that fails or outlives DP_WALL_S fails the
+     phase.
 The line before the last is a JSON object of per-kernel results (its
 `launches` is the count of the kernel's own path, KERNEL_PATH, and
 `launches_by_path` every counted path's count; K9's and K10's times are
@@ -277,6 +295,11 @@ TRAIN_PACKETS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 40, 4, 16, 4
 TRAIN_LOG_REL_TOL, TRAIN_STATE_REL_TOL, TRAIN_GRAD_REL_TOL = 1e-4, 1e-4, 1e-1
 TRAIN_PARAM_SHARE = 0.01
 TRAIN_DEAD_BIAS = "downsample.0.bias"
+# phase 16, data parallelism: the two-rank train step's global batch
+# (train.main's batch and sequence at 260x346, 2 items a rank), and each
+# world's wall limit and collective timeout (s)
+DP_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, H, W)
+DP_WALL_S, DP_COLLECTIVE_S = 400, 120
 # phase 15, the remaining models and utilities: the V2ce2d and UNetPlain3D
 # windows (frames; the card-vs-CPU comparisons run at CMP_HW, the full
 # 260x346 forwards on the card alone), the ResNetDiscriminator's batch (one
@@ -2108,7 +2131,7 @@ def train_run_phase(torch, np, counted, smi):
     gen_s = time.time() - t0
     common = ["--data_dir", data, "--log_dir", logs, "--batch_size", str(TRAIN_BATCH),
               "--seq_len", str(TRAIN_SEQ), "--max_epochs", "1", "--log_frequency", "1",
-              "--device", DEVICE]
+              "--device", DEVICE, "--devices", "1"]
 
     def run():
         first = train_main.main(common + ["--exp_name", "full", "--record_predictions", "1",
@@ -2157,7 +2180,6 @@ def train_run_phase(torch, np, counted, smi):
     if not ok:
         raise AssertionError(f"train.main on the card: train lines {train}, evals {evals}, "
                              f"checkpoints {ckpts} (step {saved}), resumed {rtrain}")
-    shutil.rmtree(data, ignore_errors=True)
     return {"step_ms": steps_ms, "median_warm_ms": warm, "peak_gib": peak}
 
 
@@ -2477,6 +2499,297 @@ def models_phase(torch, np, dev, counted, smi):
     return out
 
 
+def _dp_snapshot(torch, st, logs):
+    """A train state on the host: logs, the generator's state_dict and
+    Adam first moments by name, the discriminator's parameters and
+    moments."""
+    def m1(module, opt):
+        return {n: opt.state[p]["exp_avg"].detach().cpu() for n, p in module.named_parameters()
+                if p.requires_grad}
+
+    return {"logs": {k: float(v) for k, v in logs.items()},
+            "model": {k: v.detach().cpu() for k, v in st.model.state_dict().items()},
+            "m1": m1(st.model, st.opt),
+            "disc": {k: v.detach().cpu() for k, v in st.disc.state_dict().items()},
+            "disc_m1": m1(st.disc, st.disc_opt)}
+
+
+def _dp_digest(snap):
+    """One sha256 over every tensor of a snapshot but its logs, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for part in ("model", "m1", "disc", "disc_m1"):
+        for k in sorted(snap[part]):
+            h.update(k.encode() + snap[part][k].contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_step_errors(got, ref, lr, disc_reach):
+    """Phase 14's comparison of two train steps from one state (logs, BN
+    statistics, SN vectors, Adam first moments, parameters in units of
+    each net's reach, the generator's share of elements moved apart by
+    more than 1e-3 lr), on snapshots."""
+    errs = {"logs": max(abs(got["logs"][k] - v) / max(abs(v), 1e-30)
+                        for k, v in ref["logs"].items())}
+    for k, v in ref["model"].items():
+        if "running_" in k or k.endswith(("weight_u", "weight_v")):
+            group = "BN statistics" if "running_" in k else "SN vectors"
+            errs[group] = max(errs.get(group, 0.0), _train_rel(got["model"][k], v))
+    moved = apart = 0
+    for net, sd, m1, reach in (("generator", "model", "m1", lr),
+                               ("discriminator", "disc", "disc_m1", disc_reach)):
+        for name in ref[m1]:
+            d = (got[sd][name].double() - ref[sd][name].double()).abs()
+            key = f"{net} params / (2 lr)"
+            errs[key] = max(errs.get(key, 0.0), float(d.max()) / (2 * reach))
+            if net == "generator":
+                apart += int((d > 1e-3 * lr).sum())
+                moved += d.numel()
+            if TRAIN_DEAD_BIAS not in name:
+                key = f"{net} Adam m1"
+                errs[key] = max(errs.get(key, 0.0), _train_rel(got[m1][name], ref[m1][name]))
+    errs["generator share apart"] = apart / moved
+    return errs
+
+
+DP_LIMITS = {"logs": TRAIN_LOG_REL_TOL, "BN statistics": TRAIN_STATE_REL_TOL,
+             "SN vectors": TRAIN_STATE_REL_TOL, "generator Adam m1": TRAIN_GRAD_REL_TOL,
+             "discriminator Adam m1": TRAIN_GRAD_REL_TOL, "generator params / (2 lr)": 1 + 1e-3,
+             "discriminator params / (2 lr)": 1 + 1e-3,
+             "generator share apart": TRAIN_PARAM_SHARE}
+
+
+def _dp_train_setup(torch, np, shape):
+    """train.main's defaults: the full-width V2ce3d, PatchDiscriminator2D,
+    the default loss stack and gan_k, and a seeded global batch of `shape`
+    (B, L, H, W) on the host."""
+    from v2ce_toolbox_tpu_torch.config import ModelConfig, TrainConfig
+    from v2ce_toolbox_tpu_torch.models import V2ce3d
+    from v2ce_toolbox_tpu_torch.train import gan
+    from v2ce_toolbox_tpu_torch.train.main import build_parser
+
+    args = build_parser().parse_args([])
+    cfg = TrainConfig(loss="+".join(args.loss), lr=args.lr, weight_decay=args.weight_decay,
+                      lr_scheduler=args.lr_scheduler)
+    b, l, h, w = shape
+    rng = np.random.RandomState(1)
+    batch = {"image_units": rng.randn(b, l, h, w, 2).astype(np.float32),
+             "voxels": (rng.rand(b, l, h, w, 20) * 3
+                        * (rng.rand(b, l, h, w, 20) < 0.2)).astype(np.float32)}
+    return args, cfg, V2ce3d(ModelConfig()), gan.make_discriminator(args.gan_3d_conv), batch
+
+
+def _dp_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _dp_train_step(torch, np, dev, mesh, shape):
+    """One train step at train.main's defaults on `dev`, seeded weights,
+    alone (mesh None, the whole batch) or as a rank of `mesh` (its block).
+    Returns the snapshot and the step's ms."""
+    from v2ce_toolbox_tpu_torch.parallel.mesh import shard_batch
+    from v2ce_toolbox_tpu_torch.train import state as tstate, step as tstep
+
+    args, cfg, model, disc, batch = _dp_train_setup(torch, np, shape)
+    st = tstate.create_train_state(model, cfg, disc=disc, seed=0, mesh=mesh)
+    model.to(dev)
+    disc.to(dev)
+    step = tstep.make_train_step(model, cfg, disc=disc, gan_k=args.gan_k, mesh=mesh)
+    local = {k: torch.from_numpy(v).to(dev) for k, v in shard_batch(batch, mesh).items()}
+    _dp_sync(torch, dev)
+    t0 = time.perf_counter()
+    st, logs = step(st, local)
+    _dp_sync(torch, dev)
+    return _dp_snapshot(torch, st, logs), (time.perf_counter() - t0) * 1e3
+
+
+def dp_rank(mesh, clip, hw, out, ref_path, shape):
+    """One rank of phase 16: `run` and `run_streaming` of the main path at
+    `hw` (H, W) on the clip (the launch counters reset just before each and
+    read just after), then, with `ref_path`, one train step on its block of
+    a global batch of `shape`, held against the one-rank step saved
+    there."""
+    import numpy as np
+    import torch
+
+    from v2ce_toolbox_tpu_torch import ops
+    from v2ce_toolbox_tpu_torch.config import PipelineConfig
+    from v2ce_toolbox_tpu_torch.pipeline.driver import V2cePipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    pipe = V2cePipeline(PipelineConfig(height=hw[0], width=hw[1]), model_path=None, seed=0,
+                        mesh=mesh)
+    res = {"device": str(dev), "backend": mesh.backend}
+    for mode in ("run", "streaming"):
+        fn = pipe.run if mode == "run" else pipe.run_streaming
+        _dp_sync(torch, dev)
+        ops.reset_launches()
+        r = fn(input_video_path=clip, out_folder=os.path.join(out, mode))
+        _dp_sync(torch, dev)
+        res[mode] = dict(r, launches=ops.launch_counts())
+    if ref_path is not None:
+        del pipe
+        snap, ms = _dp_train_step(torch, np, dev, mesh, shape)
+        ref = torch.load(ref_path, weights_only=True)
+        res["train"] = {"ms": ms, "digest": _dp_digest(snap), "loss": snap["logs"]["loss"],
+                        "errs": _dp_step_errors(snap, ref, ref["lr"], ref["disc_reach"])}
+    return res
+
+
+def _dp_world(torch, np, label, devices, clip, out, want, counted, smi, ref_path=None):
+    """Phase 16's world on `devices`: each rank's npz stream and preview
+    against one rank's (`want`), its own K1/K2/K3 launches (joined to the
+    counted paths), frames/s; returns each rank's result."""
+    from v2ce_toolbox_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.time()
+    ranks = pmesh.launch(dp_rank, len(devices), args=(clip, (H, W), out, ref_path,
+                                                      DP_TRAIN_SHAPE),
+                         devices=devices, timeout_s=DP_WALL_S,
+                         collective_timeout_s=DP_COLLECTIVE_S)
+    lead = ranks[0]
+    log(f"[dp] {label}: {len(devices)} rank(s) on {', '.join(map(str, devices))}, backend "
+        f"{lead['backend']}, world {time.time() - t0:.1f} s [{smi}]")
+    for mode in ("run", "streaming"):
+        ev = np.load(lead[mode]["event_stream_path"])["event_stream"]
+        with open(lead[mode]["event_frame_video"], "rb") as f:
+            preview = f.read()
+        if ev.tobytes() != want[mode][0] or preview != want[mode][1]:
+            raise AssertionError(f"{label} {mode}: the stream or the preview differs from "
+                                 "one rank's")
+        for r, res in enumerate(ranks):
+            path = f"phase 16 {label} rank {r} {mode}"
+            counted.by_path[path] = res[mode]["launches"]
+            missing = [k for k in CENTER_PATH if res[mode]["launches"][k] <= 0]
+            if missing or (r and "event_stream_path" in res[mode]):
+                raise AssertionError(f"{path}: never launched {missing}, or wrote files")
+            t, wall = res[mode]["timings"], res[mode]["wall_time_s"]
+            launched = ", ".join(f"{k} {res[mode]['launches'][k]}" for k in CENTER_PATH)
+            log(f"[dp] {label} rank {r} {mode}: {t['windows']} stage-1 windows, "
+                f"{t['chunks']} stage-2 chunks, {wall:.3f} s, the clip's "
+                f"{lead[mode]['num_frames']} frames over it {lead[mode]['num_frames'] / wall:.2f} "
+                f"frames/s (the first run of a fresh process), launches: {launched} [{smi}]")
+        log(f"[dp] {label} {mode}: {len(ev)} events, byte-identical to one rank's, preview "
+            f"identical ({len(preview)} bytes)")
+    return ranks
+
+
+def data_parallel_phase(torch, np, counted, smi):
+    """Phase 16: data parallelism over ranks (`parallel/mesh.py`), each rank
+    a spawned process on its card: (a) a world of every visible GPU (NCCL)
+    runs `run` and `run_streaming` on the 260x346 clip; (b) two ranks
+    (NCCL on two GPUs, gloo on one) do the same and one train step at
+    train.main's defaults on a global batch of DP_TRAIN_SHAPE, held against
+    one rank's step (phase 14's tolerances) and across the ranks (one
+    state, bit for bit); (c) train.main over every visible GPU for 2 steps
+    and an eval on phase 14's packets."""
+    import shutil
+
+    from v2ce_toolbox_tpu_torch.config import PipelineConfig
+    from v2ce_toolbox_tpu_torch.pipeline.driver import V2cePipeline
+    from v2ce_toolbox_tpu_torch.train import main as train_main
+
+    t_phase = time.time()
+    gpus = torch.cuda.device_count()
+
+    def cards(n):
+        """n ranks' devices: the GPUs in turn (a CPU rehearsal: the CPU)."""
+        return [torch.device(DEVICE, r % gpus) if DEVICE == "cuda" else torch.device(DEVICE)
+                for r in range(n)]
+
+    dev = cards(1)[0]
+    out = os.path.join(OUT, "dp")
+    shutil.rmtree(out, ignore_errors=True)
+    # every rank of (a) needs a 16-frame stage-1 window and a stage-2 chunk of F
+    frames = max(33, F * (gpus - 1) + 2)
+    clip = os.path.join(OUT, "clip.mp4")
+    if frames > 33:
+        clip = os.path.join(out, "clip.mp4")
+        os.makedirs(out, exist_ok=True)
+        make_clip(clip, frames, H, W)
+    pipe = V2cePipeline(PipelineConfig(height=H, width=W), model_path=None, seed=0, device=dev)
+    want = {}
+    for mode in ("run", "streaming"):
+        fn = pipe.run if mode == "run" else pipe.run_streaming
+        r = fn(input_video_path=clip, out_folder=os.path.join(out, "one", mode))
+        with open(r["event_frame_video"], "rb") as f:
+            want[mode] = (np.load(r["event_stream_path"])["event_stream"].tobytes(), f.read())
+        log(f"[dp] one rank, no mesh, {mode}: {r['num_events']} events, "
+            f"{r['num_frames'] / r['wall_time_s']:.2f} frames/s [{smi}]")
+    del pipe
+    torch.cuda.empty_cache()
+
+    # (a) every visible GPU
+    _dp_world(torch, np, "(a) every GPU", cards(gpus), clip, os.path.join(out, "a"), want, counted,
+              smi)
+
+    # (b) two ranks, with the train step against one rank's
+    from v2ce_toolbox_tpu_torch.train.gan import make_disc_optimizer
+    from v2ce_toolbox_tpu_torch.train.main import build_parser
+
+    snap, ms = _dp_train_step(torch, np, dev, None, DP_TRAIN_SHAPE)
+    args = build_parser().parse_args([])
+    disc_lr = make_disc_optimizer([torch.zeros(1, requires_grad=True)]).defaults["lr"]
+    ref_path = os.path.join(out, "one_rank_step.pt")
+    torch.save(dict(snap, lr=float(args.lr), disc_reach=args.gan_k * disc_lr), ref_path)
+    del snap
+    torch.cuda.empty_cache()
+    log(f"[dp] one rank, no mesh: one train step, batch {DP_TRAIN_SHAPE}, {ms:.1f} ms "
+        f"(first step of the model in this process) [{smi}]")
+    two = cards(2)
+    if gpus < 2:
+        log("[dp] (b) one GPU: NCCL refuses two ranks on one device, so gloo; two ranks on "
+            "one card share it, and their times measure no scaling")
+    ranks = _dp_world(torch, np, "(b) two ranks", two, clip, os.path.join(out, "b"), want,
+                      counted, smi, ref_path)
+    digests = {res["train"]["digest"] for res in ranks}
+    for r, res in enumerate(ranks):
+        errs = res["train"]["errs"]
+        log(f"[dp] (b) rank {r}: one train step, {DP_TRAIN_SHAPE[0] // 2} items, "
+            f"{res['train']['ms']:.1f} ms (first step in the process), loss "
+            f"{res['train']['loss']:.6f}; against one rank: "
+            + ", ".join(f"{k} {v:.3e} (limit {DP_LIMITS[k]:g})" for k, v in errs.items())
+            + f" [{smi}]")
+        bad = [k for k, v in errs.items() if not v <= DP_LIMITS[k]]
+        if bad:
+            raise AssertionError(f"(b) rank {r}'s train step disagrees with one rank's: {bad}")
+    if len(digests) != 1:
+        raise AssertionError("(b) the ranks' parameters, moments or statistics differ")
+    log("[dp] (b) both ranks hold one state (parameters, BN statistics, SN vectors, Adam "
+        "moments, discriminator), bit for bit")
+
+    # (c) train.main over every visible GPU
+    if gpus < 2:
+        log("[dp] (c) one GPU: train.main --devices 1 takes no mesh and runs as in phase 14; "
+            "its spawned world over cards (launch over NCCL, the loader's rank blocks, the "
+            "recorder's gather, the checkpoint barrier) is not run on this host")
+    data = os.path.join(OUT, "train_packets")
+    logs = os.path.join(out, "train_logs")
+    res = train_main.main(["--data_dir", data, "--log_dir", logs, "--batch_size",
+                           str(TRAIN_BATCH), "--seq_len", str(TRAIN_SEQ), "--max_epochs", "1",
+                           "--log_frequency", "1", "--device", DEVICE, "--devices", str(gpus),
+                           "--max_steps_per_epoch", "2", "--exp_name", "dp",
+                           "--dump_previews", "false"])
+    with open(os.path.join(res["work_dir"], "metrics.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    train = [x["train"] for x in lines if "train" in x]
+    vals = [v for x in lines for part in x.values() for v in part.values()]
+    per_rank = [r["step_s"] for r in res.get("ranks", [res])]
+    log(f"[dp] (c) train.main over {gpus} GPU(s), batch {TRAIN_BATCH}: "
+        + "; ".join(f"rank {r} steps {', '.join(f'{t * 1e3:.1f}' for t in s)} ms"
+                    for r, s in enumerate(per_rank))
+        + f"; losses {', '.join(f'{x['loss']:.4f}' for x in train)} [{smi}]")
+    if len(train) != 2 or not all(np.isfinite(vals)):
+        raise AssertionError(f"(c) train.main over {gpus} GPU(s): {lines}")
+    shutil.rmtree(data, ignore_errors=True)
+    shutil.rmtree(out, ignore_errors=True)
+    log(f"[dp] phase 16 in {time.time() - t_phase:.1f} s")
+
+
 def main():
     import torch
 
@@ -2553,6 +2866,9 @@ def main():
 
     # 15. the remaining models and utilities at full width, counted
     models_phase(torch, np, dev, counted, smi)
+
+    # 16. data parallelism over ranks, each rank counted
+    data_parallel_phase(torch, np, counted, smi)
 
     # 6. stage 1 on the card against the CPU: the full-width model, seeded
     # weights, one 16-frame window of 64x96 (TF32 off; cuDNN and the CPU

@@ -49,6 +49,8 @@ MODULES = [
     "v2ce_toolbox_tpu_torch.ops.ldati",
     "v2ce_toolbox_tpu_torch.ops.roofline",
     "v2ce_toolbox_tpu_torch.ops.samplers",
+    "v2ce_toolbox_tpu_torch.parallel",
+    "v2ce_toolbox_tpu_torch.parallel.mesh",
     "v2ce_toolbox_tpu_torch.pipeline.driver",
     "v2ce_toolbox_tpu_torch.pipeline.infer",
     "v2ce_toolbox_tpu_torch.pipeline.preprocess",

@@ -67,13 +67,18 @@ def test_best_or_last_matches_jax(tmp_path, entries):
     assert checkpoint.best_or_last(str(tmp_path / "absent")) is None
 
 
-@pytest.mark.parametrize("flags,error", [
-    (["--devices", "2"], NotImplementedError), (["--num_processes", "2"], NotImplementedError),
-    (["--coordinator", "localhost:1234"], NotImplementedError),
-    (["--model_name", "v2ce_2d"], NotImplementedError)])
-def test_train_main_refuses_unported_flags(tmp_path, flags, error):
-    """Refused before anything is read or written."""
-    with pytest.raises(error, match="item 6|only"):
+@pytest.mark.parametrize("flags,error,match", [
+    (["--device", "cuda", "--devices", "2"], ValueError, "more than the 1 visible GPU"),
+    (["--num_processes", "2"], ValueError, "needs --coordinator"),
+    (["--num_processes", "2", "--process_id", "2", "--coordinator", "localhost:1234"],
+     ValueError, "not in \\[0, --num_processes 2\\)"),
+    (["--model_name", "v2ce_2d"], NotImplementedError, "only")])
+def test_train_main_refuses_unported_flags(tmp_path, monkeypatch, flags, error, match):
+    """Refused before anything is read or written (a host with one GPU
+    stands in for the card)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(error, match=match):
         train_main.main(SMALL + ["--data_dir", str(tmp_path / "absent"),
                                  "--log_dir", str(tmp_path)] + flags)
     assert not os.listdir(tmp_path)

@@ -97,3 +97,18 @@ def test_overfit_demo_writes_the_jax_artifact_schema(tmp_path):
     art = json.load(open(out))
     assert set(art) == _jax_overfit_keys()
     assert art["reached_at_step"] == 1 and art["devices"] == 1
+
+
+def test_overfit_demo_over_two_ranks(tmp_path):
+    """`--devices 2`: two gloo ranks, 1 item each; rank 0 writes the
+    artifact."""
+    from v2ce_toolbox_tpu_torch.tools import overfit_demo
+
+    out = str(tmp_path / "overfit.json")
+    with pytest.raises(SystemExit) as e:
+        overfit_demo.main(["--steps", "1", "--target", "0", "--batch_size", "2",
+                           "--device", "cpu", "--devices", "2", "--out", out])
+    assert e.value.code == 0
+    art = json.load(open(out))
+    assert set(art) == _jax_overfit_keys()
+    assert art["reached_at_step"] == 1 and art["devices"] == 2

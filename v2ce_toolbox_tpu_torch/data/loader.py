@@ -4,9 +4,12 @@ Replaces torch DataLoader + Lightning DataInterface
 (reference: train/scripts/data/data_interface.py:32-39): a thread pool
 materializes packets ahead of consumption, and batches are copied to the
 card from pinned host memory one step ahead of compute, double-buffering
-host IO against device execution. `iterate_batches` is a copy of
-`v2ce_toolbox_tpu/data/loader.py`'s; `device_prefetch` takes one device
-where the JAX version took a mesh (several GPUs are not handled yet).
+host IO against device execution. `iterate_batches` is
+`v2ce_toolbox_tpu/data/loader.py`'s; under a data-parallel mesh
+(`parallel/mesh.py`) every rank walks the same global order and collates
+only its own block of each global batch (the JAX mesh's `P("data")`).
+`device_prefetch` takes the rank's device where the JAX version took a
+mesh.
 """
 
 from __future__ import annotations
@@ -26,13 +29,17 @@ def iterate_batches(
     seed: int = 0,
     num_workers: int = 4,
     drop_last: bool = True,
+    mesh=None,
 ) -> Iterator[Dict[str, np.ndarray]]:
-    """Yield stacked host batches from an indexable dataset."""
+    """Yield stacked host batches from an indexable dataset; under a
+    `mesh`, this rank's block of each global batch of `batch_size` items
+    (the batches are whole: drop_last, and batch_size divisible by the
+    rank count)."""
     n = len(dataset)
     order = np.arange(n)
     if shuffle:
         np.random.RandomState(seed).shuffle(order)
-    if drop_last:
+    if drop_last or mesh is not None:
         order = order[: (n // batch_size) * batch_size]
 
     def collate(indices):
@@ -40,15 +47,15 @@ def iterate_batches(
         return {k: np.stack([it[k] for it in items], axis=0)
                 for k in items[0]}
 
+    block = slice(None) if mesh is None else mesh.block(batch_size)
+    chunks = [order[i:i + batch_size][block] for i in range(0, len(order), batch_size)]
     if num_workers <= 1:
-        for i in range(0, len(order), batch_size):
-            yield collate(order[i:i + batch_size])
+        for c in chunks:
+            yield collate(c)
         return
 
     with concurrent.futures.ThreadPoolExecutor(num_workers) as pool:
         futures = []
-        chunks = [order[i:i + batch_size]
-                  for i in range(0, len(order), batch_size)]
         # keep up to num_workers batches in flight
         it = iter(chunks)
         for _ in range(num_workers):

@@ -32,6 +32,7 @@ from torch import nn
 
 from v2ce_toolbox_tpu_torch.ops.conv3d import conv3d_3x3x3
 from v2ce_toolbox_tpu_torch.ops.decoder import fused_up_concat_conv
+from v2ce_toolbox_tpu_torch.parallel.mesh import all_reduce_with_grad
 
 
 def _triple(v) -> Tuple[int, int, int]:
@@ -70,14 +71,28 @@ class _FlaxTrainBN:
     variance (torch's own moves toward the unbiased one, n/(n-1) times
     larger). The output is (x - mean) * (rsqrt(var + eps) * weight) + bias,
     in flax's op order; gradients flow through the batch mean and
-    variance."""
+    variance.
+
+    With a data-parallel `mesh` (`use_global_batch`), mean and mean(x^2)
+    are taken over the global batch, as under the JAX mesh: the per-channel
+    sums of x and x^2 are summed over the ranks by an all_reduce with
+    autograd, so each rank's input gradient also takes the other ranks'
+    share through the statistics. (torch's SyncBatchNorm would move the
+    running variance toward the unbiased variance.)"""
+
+    mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         dims = (0,) + tuple(range(2, x.dim()))
-        mean = x.mean(dims)
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        if self.mesh is None:
+            mean, mean2 = x.mean(dims), (x * x).mean(dims)
+        else:
+            n = x.numel() // x.shape[1] * self.mesh.size
+            sums = all_reduce_with_grad(torch.cat([x.sum(dims), (x * x).sum(dims)]))
+            mean, mean2 = (sums / n).chunk(2)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
@@ -99,6 +114,14 @@ class BatchNorm2d(_FlaxTrainBN, nn.BatchNorm2d):
 
 
 _BATCHNORM = {2: BatchNorm2d, 3: BatchNorm3d}
+
+
+def use_global_batch(model: nn.Module, mesh) -> None:
+    """Every flax-form BatchNorm of `model` takes its train-mode statistics
+    over the global batch of a data-parallel `mesh` (None: its own batch)."""
+    for m in model.modules():
+        if isinstance(m, _FlaxTrainBN):
+            m.mesh = mesh
 
 
 def _bn(bn: nn.Module, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:

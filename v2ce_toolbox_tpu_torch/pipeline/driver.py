@@ -10,6 +10,15 @@
 
 `run` holds the whole clip's voxels; `run_streaming` runs the same steps
 per 16-frame window and keeps only the per-polarity sums for the preview.
+
+With a data-parallel mesh (`parallel/mesh.py`; the JAX `V2cePipeline`'s `mesh=`)
+the ranks share the work, and the event stream and the preview are
+byte-identical to one device's: window or chunk i draws from
+`make_draw(seed, i)` whichever rank runs it, and a stage-1 batch runs on
+one rank as a whole. `run_streaming` round-robins the windows over the
+ranks; `run` round-robins stage 1's window batches, gathers the windows on
+every rank, and round-robins stage 2's chunks. Rank 0 gathers the records
+in order and alone writes the files.
 Stage 2 takes the fused route (the sampler's post-sort rows straight into
 the wire format, `_fetch_chunk_events_fused`) unless the configuration
 needs the EventStream route (bidirectional relocation, or a geometry whose
@@ -55,6 +64,7 @@ from v2ce_toolbox_tpu_torch.ops.ldati import (
     sample_rows,
     supports_rows,
 )
+from v2ce_toolbox_tpu_torch.parallel.mesh import all_gather_rows, gather_to_lead
 from v2ce_toolbox_tpu_torch.pipeline.infer import make_forward_fn
 from v2ce_toolbox_tpu_torch.pipeline.preprocess import resize_frames
 from v2ce_toolbox_tpu_torch.pipeline.render import (
@@ -386,9 +396,12 @@ class V2cePipeline:
     """Video/image-sequence -> event stream converter (stage 1 + stage 2)."""
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
-                 model_path: Optional[str] = None, device="cuda", seed: int = 0):
+                 model_path: Optional[str] = None, device="cuda", seed: int = 0,
+                 mesh=None):
         """device: where the model and the sampler run; seed: the weight
-        init (when model_path does not exist) and the sampler draws."""
+        init (when model_path does not exist) and the sampler draws; mesh:
+        a data-parallel `parallel.mesh.DataMesh` to share the work with (its
+        device replaces `device`)."""
         if config.infer_type not in ("center", "pano"):
             raise ValueError(f"invalid infer_type {config.infer_type!r}")
         self.config = config
@@ -396,7 +409,8 @@ class V2cePipeline:
             self._check_sampler(config.width)
         else:                           # the pano width is known at the first window
             check_wire(config.height)
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
         self.seed = seed
         self.model = V2ce3d(config.model)
         load_weights(self.model, model_path, seed)
@@ -442,31 +456,38 @@ class V2cePipeline:
             torch.from_numpy(frames).to(self.device))      # (b, L, H, W_out, 20)
         return out.permute(0, 1, 4, 2, 3)
 
+    def _ranks(self):
+        """(this rank, the rank count): (0, 1) without a mesh."""
+        return (0, 1) if self.mesh is None else (self.mesh.rank, self.mesh.size)
+
     def video_to_voxels(self, *, vidcap=None, image_paths=None) -> torch.Tensor:
         """Run stage 1 over a whole video; returns the merged voxels in
-        channel-major layout (T, 20, H, W_out), T = frame_count - 1."""
+        channel-major layout (T, 20, H, W_out), T = frame_count - 1. Under a
+        mesh, batch j of `batch_size` windows runs on rank j mod n, and every
+        rank gets every window, bit for bit."""
         cfg = self.config
         if (vidcap is None) == (image_paths is None):
             raise ValueError("give exactly one of vidcap and image_paths")
         frame_count = vidcap.frame_count if vidcap is not None else len(image_paths)
         starts, mode = plan_windows(frame_count, cfg.seq_len)
-        outputs: List[torch.Tensor] = []
-        batch: List[np.ndarray] = []
-
-        def flush():
-            if batch:
-                outputs.append(self._forward(np.stack(batch, axis=0)))
-                batch.clear()
+        rank, size = self._ranks()
+        groups = [range(g, min(g + cfg.batch_size, len(starts)))
+                  for g in range(0, len(starts), cfg.batch_size)]
 
         t0 = time.perf_counter()
-        for start in starts:
-            batch.append(self._read_window(start, vidcap, image_paths))
-            if len(batch) == cfg.batch_size:
-                flush()
-        flush()
-        voxels = self._merge(torch.cat(outputs, dim=0), mode)
+        outputs = [self._forward(np.stack([self._read_window(starts[i], vidcap, image_paths)
+                                           for i in group], axis=0))
+                   for group in groups[rank::size]]
+        windows = torch.cat(outputs, dim=0) if outputs else None
+        if self.mesh is not None:
+            # rank r holds the windows of groups r, r + n, ...: back to window order
+            order = [i for r in range(size) for group in groups[r::size] for i in group]
+            gathered = torch.cat(all_gather_rows(windows, self.mesh), dim=0)
+            windows = gathered[torch.from_numpy(np.argsort(order)).to(gathered.device)]
+        voxels = self._merge(windows, mode)
         _sync(self.device)
-        self.timings.update(stage1_s=time.perf_counter() - t0, windows=len(starts))
+        self.timings.update(stage1_s=time.perf_counter() - t0,
+                            windows=sum(len(g) for g in groups[rank::size]))
         return voxels
 
     @staticmethod
@@ -512,21 +533,30 @@ class V2cePipeline:
             recs.extend(to_recarrays(s, offsets64))
         return recs[:voxels.shape[0]]
 
-    def voxels_to_event_stream(self, voxels: torch.Tensor) -> np.ndarray:
+    def voxels_to_event_stream(self, voxels: torch.Tensor) -> Optional[np.ndarray]:
         """Merged voxels (T, 20, H, W) -> ONE structured event stream with
         the per-frame i/fps offsets applied. Chunks of stage2_batch_size
-        frames are sampled with draws seeded from (seed, chunk index)."""
+        frames are sampled with draws seeded from (seed, chunk index).
+        Under a mesh, chunk i runs on rank i mod n and rank 0 gathers the
+        stream; the other ranks return None."""
         cfg = self.config
+        rank, size = self._ranks()
         t0 = time.perf_counter()
         parts = []
-        n_chunks = 0
         for i, v, frames, offsets64 in self._chunks(voxels):
+            if i % size != rank:
+                continue
             base_us = int(offsets64[0])
             rel_t = torch.from_numpy((offsets64 - base_us).astype(np.int32)).to(v.device)
             parts.append(chunk_events(v, make_draw(self.seed, i, v.device), rel_t, frames,
                                       cfg.sampler, cfg.fps, base_us=base_us))
-            n_chunks += 1
-        self.timings.update(stage2_s=time.perf_counter() - t0, chunks=n_chunks)
+        self.timings.update(stage2_s=time.perf_counter() - t0, chunks=len(parts))
+        gathered = gather_to_lead(parts, self.mesh)
+        if gathered is None:
+            return None
+        # rank r holds chunks r, r + n, ...: back to chunk order
+        parts = [gathered[i % size][i // size]
+                 for i in range(sum(len(g) for g in gathered))]
         return np.concatenate(parts) if parts else np.zeros(0, EVENT_DTYPE)
 
     # -- full runs --------------------------------------------------------
@@ -541,8 +571,13 @@ class V2cePipeline:
         write_video(frames, ef_path, cfg.fps)
         result["event_frame_video"] = ef_path
 
-    def _finish(self, event_stream: np.ndarray, out_folder: str, output_name: str,
+    def _finish(self, event_stream: Optional[np.ndarray], out_folder: str, output_name: str,
                 result: dict, n_frames: int, t_start: float, tag: str = "") -> dict:
+        """Write the npz (rank 0; another rank, holding no stream, writes
+        nothing and returns its timings)."""
+        if event_stream is None:
+            result.update(wall_time_s=time.time() - t_start, timings=dict(self.timings))
+            return result
         ev_path = op.join(out_folder, f"{output_name}-events.npz")
         np.savez(ev_path, event_stream=event_stream)
         result.update(event_stream_path=ev_path, num_events=int(event_stream.shape[0]),
@@ -570,10 +605,13 @@ class V2cePipeline:
     def run(self, *, input_video_path: Optional[str] = None,
             image_folder: Optional[str] = None, out_folder: str = "./output",
             out_name_suffix: str = "") -> dict:
-        """Full CLI run; returns paths, counts and timings."""
+        """Full CLI run; returns paths, counts and timings (under a mesh,
+        rank 0 writes and returns the paths; every rank its timings)."""
         cfg = self.config
+        lead = self.mesh is None or self.mesh.is_lead
         vidcap, paths, n_frames = self._open(input_video_path, image_folder)
-        os.makedirs(out_folder, exist_ok=True)
+        if lead:
+            os.makedirs(out_folder, exist_ok=True)
         output_name = _output_name(cfg, input_video_path, image_folder, out_name_suffix)
         self.timings = {}
         t_start = time.time()
@@ -585,7 +623,7 @@ class V2cePipeline:
 
         t_, c_, h_, w_ = voxels.shape
         result = {"voxels_shape": (t_, h_, w_, c_)}   # logical, channels-last
-        if cfg.write_event_frame_video:
+        if cfg.write_event_frame_video and lead:
             frames = render_event_frames_cmajor(
                 voxels, ceil=float(cfg.ceil),
                 upper_bound_percentile=cfg.upper_bound_percentile,
@@ -607,19 +645,23 @@ class V2cePipeline:
         function of the voxels; the last window re-emits only its
         non-overlapping tail, like the window merge). Window i draws from
         `make_draw(seed, i, device)`, so the timestamps differ from run()'s
-        in distribution only."""
+        in distribution only. Under a mesh, window i runs on rank i mod n;
+        rank 0 gathers the records and the event-frame sums in window order
+        and writes."""
         cfg = self.config
+        rank, size = self._ranks()
         vidcap, paths, frame_count = self._open(input_video_path, image_folder)
-        os.makedirs(out_folder, exist_ok=True)
+        if rank == 0:
+            os.makedirs(out_folder, exist_ok=True)
         output_name = _output_name(cfg, input_video_path, image_folder, out_name_suffix)
         self.timings = {"stage1_s": 0.0, "stage2_s": 0.0}
         t_start = time.time()
         starts, mode = plan_windows(frame_count, cfg.seq_len)
-        parts: List[np.ndarray] = []
-        ef_sums: List[torch.Tensor] = []
-        h_out = w_out = None
+        mine = []               # (window, records, event-frame sums, (h, w)) of this rank
         try:
             for i, start in enumerate(starts):
+                if i % size != rank:
+                    continue
                 t0 = time.perf_counter()
                 vox = self._forward(self._read_window(start, vidcap, paths)[None])[0]
                 _sync(self.device)
@@ -627,29 +669,35 @@ class V2cePipeline:
                 h_out, w_out = vox.shape[-2:]
                 v = vox.reshape(cfg.seq_len, 2, vox.shape[1] // 2, h_out, w_out).contiguous()
                 skip = (cfg.seq_len - mode) if (i == len(starts) - 1 and mode) else 0
-                if cfg.write_event_frame_video:
-                    ef_sums.append(v.sum(dim=2)[skip:])
+                ef = v.sum(dim=2)[skip:] if cfg.write_event_frame_video else None
+                if ef is not None and self.mesh is not None:
+                    ef = ef.cpu()
                 offsets64 = ((np.arange(cfg.seq_len) + int(start)) / cfg.fps
                              * 1e6).astype(np.int64)
                 base_us = int(offsets64[0])          # window-rebased: any length
                 rel_t = torch.from_numpy((offsets64 - base_us).astype(np.int32)).to(v.device)
-                parts.append(chunk_events(v, make_draw(self.seed, i, v.device), rel_t,
-                                          cfg.seq_len, cfg.sampler, cfg.fps,
-                                          skip_lead=skip, base_us=base_us))
+                rec = chunk_events(v, make_draw(self.seed, i, v.device), rel_t, cfg.seq_len,
+                                   cfg.sampler, cfg.fps, skip_lead=skip, base_us=base_us)
+                mine.append((i, rec, ef, (h_out, w_out)))
                 self.timings["stage1_s"] += t1 - t0
                 self.timings["stage2_s"] += time.perf_counter() - t1
         finally:
             if vidcap is not None:
                 vidcap.close()
-        self.timings.update(windows=len(starts), chunks=len(starts))
-
+        self.timings.update(windows=len(mine), chunks=len(mine))
+        gathered = gather_to_lead(mine, self.mesh)
+        if gathered is None:
+            return self._finish(None, out_folder, output_name, {}, frame_count, t_start)
+        windows = sorted((w for g in gathered for w in g), key=lambda w: w[0])
+        h_out, w_out = windows[-1][3]
         result = {"voxels_shape": (frame_count - 1, h_out, w_out, cfg.model.out_channels)}
         if cfg.write_event_frame_video:
             frames = render_event_frames_from_sums(
-                torch.cat(ef_sums, dim=0), ceil=float(cfg.ceil),
+                torch.cat([w[2].to(self.device) for w in windows], dim=0), ceil=float(cfg.ceil),
                 upper_bound_percentile=cfg.upper_bound_percentile,
                 keep_polarity=cfg.vis_keep_polarity)
             self._write_preview(frames, out_folder, output_name, result)
+        parts = [w[1] for w in windows]
         event_stream = np.concatenate(parts) if parts else np.zeros(0, EVENT_DTYPE)
         return self._finish(event_stream, out_folder, output_name, result, frame_count,
                             t_start, tag="[streaming] ")

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from v2ce_toolbox_tpu_torch.parallel.mesh import average_gradients
+
 
 class _PatchDiscriminator(nn.Module):
     conv = nn.Conv2d
@@ -97,9 +99,11 @@ def _prep(voxels: torch.Tensor, use_3d_conv: bool) -> torch.Tensor:
 
 def discriminator_update(disc: nn.Module, optimizer: torch.optim.Optimizer,
                          fake_voxels: torch.Tensor, real_voxels: torch.Tensor, *,
-                         gan_k: int = 3, use_3d_conv: bool = False) -> torch.Tensor:
+                         gan_k: int = 3, use_3d_conv: bool = False, mesh=None) -> torch.Tensor:
     """`gan_k` BCE updates of the discriminator on the detached fake (label
-    0) and real (label 1) voxels. Returns the mean d_loss (detached)."""
+    0) and real (label 1) voxels. Returns the mean d_loss (detached), this
+    rank's under a data-parallel `mesh`, where each update's gradients are
+    averaged over the ranks first: the gradient of the global-batch loss."""
     fake = _prep(fake_voxels.detach(), use_3d_conv)
     real = _prep(real_voxels.detach(), use_3d_conv)
     total = 0.0
@@ -107,6 +111,7 @@ def discriminator_update(disc: nn.Module, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         d_loss = _bce_logits(disc(fake), 0.0) + _bce_logits(disc(real), 1.0)
         d_loss.backward()
+        average_gradients(disc.parameters(), mesh)
         optimizer.step()
         total = total + d_loss.detach()
     return total / gan_k

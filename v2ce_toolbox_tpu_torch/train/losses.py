@@ -14,6 +14,8 @@ from typing import Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from v2ce_toolbox_tpu_torch.parallel.mesh import all_reduce_with_grad
+
 
 def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.square(a - b))
@@ -137,12 +139,23 @@ def l2_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return _mse(pred, gt)
 
 
-def norm_l1(pred: torch.Tensor) -> torch.Tensor:
-    return torch.sum(_abs(pred))
+def norm_l1(pred: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Sum of |pred|. A sum, not a mean, over the batch: under a
+    data-parallel `mesh` this rank's sum is scaled by the rank count, so
+    the mean over the ranks (of the term and of its gradient) is the
+    global batch's."""
+    s = torch.sum(_abs(pred))
+    return s if mesh is None else s * mesh.size
 
 
-def norm_l2(pred: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(torch.square(pred)))
+def norm_l2(pred: torch.Tensor, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares; under a `mesh` the sum runs over the
+    global batch (an all_reduce with autograd), so every rank holds the
+    global value."""
+    s = torch.sum(torch.square(pred))
+    if mesh is not None:
+        s = all_reduce_with_grad(s)
+    return torch.sqrt(s)
 
 
 #: Every composable loss name; anything else raises ValueError.
@@ -178,6 +191,7 @@ def compose_losses(
     encoder_loss_fn=None,
     pred_extras: Dict[str, torch.Tensor] = None,
     batch: Dict[str, torch.Tensor] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(weighted sum, {term: value}) of the named losses, in the JAX
     function's order and with its checks. The GAN's generator term comes
@@ -185,7 +199,10 @@ def compose_losses(
     and `batch` carry the 'imu' and 'physical_att(s)' outputs and targets
     of multi-output models ('physical' is skipped without attention maps,
     'imu' raises without both sides); 'encoder' needs `encoder_loss_fn`.
-    Unknown names raise ValueError."""
+    Unknown names raise ValueError. Under a data-parallel `mesh` each term
+    is this rank's share, whose mean over the ranks is the global batch's
+    value: the means over equal blocks as they are, the norms as
+    `norm_l1` / `norm_l2` say."""
     unknown = set(loss_names) - KNOWN_LOSS_NAMES
     if unknown:
         raise ValueError(
@@ -260,11 +277,11 @@ def compose_losses(
         total += v
         logs["l2"] = v
     if "norml1" in loss_names:
-        v = norm_l1(pred)
+        v = norm_l1(pred, mesh)
         total += a["alpha_norm"] * v
         logs["norml1"] = v
     if "norml2" in loss_names:
-        v = norm_l2(pred)
+        v = norm_l2(pred, mesh)
         total += a["alpha_norm"] * v
         logs["norml2"] = v
     if "gan" in loss_names and gan_loss_value is not None:

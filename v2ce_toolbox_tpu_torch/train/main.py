@@ -1,8 +1,8 @@
-"""V2CE stage-1 training on one GPU.
+"""V2CE stage-1 training, on one device or data-parallel over several.
 
     python -m v2ce_toolbox_tpu_torch.data.dummy_data_gen --data_dir dummy_data
     python -m v2ce_toolbox_tpu_torch.train.main --data_dir dummy_data \\
-        --max_epochs 1 --batch_size 2 [--device cpu]
+        --max_epochs 1 --batch_size 2 [--device cpu] [--devices N]
 
 `train_main.py`'s flags and defaults (V2ce3d base 32 with 4 encoders,
 16-frame sequences, batch 4, the loss stack pyramid gan ef ef_splitp
@@ -15,6 +15,23 @@ also carry `global_step`, the state's step after the update),
 `--record_predictions`, `recorder/val-e<N>-b<i>.pkl`. `--load_dir` resumes
 the whole state (model, BN statistics, spectral-norm vectors,
 discriminator, both optimizers, step) from a checkpoint directory or file.
+
+Data parallelism, one process a rank (`parallel/mesh.py`), as
+`train_main.py` runs over a device mesh: the global batch `--batch_size`
+splits over n ranks, n the largest count up to the available devices
+that divides it (`--devices`, else every visible GPU; on the CPU
+`--devices`, else 1), with BatchNorm over the global batch and gradients
+averaged over the ranks: the same step as one device on the whole batch.
+Worlds:
+  * `--devices N` on one host: N ranks spawned here (NCCL, one GPU each;
+    gloo with `--device cpu`);
+  * under torchrun (`RANK`, `WORLD_SIZE`, `LOCAL_RANK` set): each process
+    is a rank, on `cuda:LOCAL_RANK`;
+  * `--coordinator host:port --num_processes P --process_id i`: a TCP
+    rendezvous of P processes started by hand, one rank each.
+Rank 0 alone writes `metrics.jsonl`, the checkpoints, the previews and the
+recorder (whose pickles hold the whole global batch); every rank loads
+`--load_dir`.
 """
 
 import argparse
@@ -26,9 +43,6 @@ import pickle
 import time
 
 logger = logging.getLogger("train")
-
-MULTI_DEVICE = ("is not ported: the port trains on one device; data-parallel "
-                "training (DDP with SyncBatchNorm) is ROADMAP queue 1 item 6")
 
 
 def SBool(v):
@@ -48,13 +62,15 @@ def build_parser():
     g.add_argument("--test_only", type=SBool, default=False, nargs="?", const=True)
     g.add_argument("--max_epochs", default=100, type=int)
     g.add_argument("--devices", default=None, type=int,
-                   help="number of devices; only 1 is ported")
+                   help="devices to train over, one spawned rank each (default: every "
+                        "visible GPU; 1 on the CPU), cut to the largest count that divides "
+                        "--batch_size")
     g.add_argument("--coordinator", default=None, type=str,
-                   help="multi-host coordinator address host:port (not ported)")
+                   help="rendezvous address host:port of a multi-process run")
     g.add_argument("--num_processes", default=1, type=int,
-                   help="total number of host processes in the job (only 1 is ported)")
+                   help="total number of processes (ranks) in the job")
     g.add_argument("--process_id", default=0, type=int,
-                   help="this host's rank in [0, num_processes)")
+                   help="this process's rank in [0, num_processes)")
     g.add_argument("--device", default="cuda", type=str,
                    help="torch device to train on (cuda, cuda:N or cpu)")
 
@@ -106,10 +122,19 @@ def build_parser():
 
 def check_args(args) -> None:
     """Refuse what the port does not run, before anything is built."""
-    if args.devices not in (None, 1):
-        raise NotImplementedError(f"--devices {args.devices} {MULTI_DEVICE}")
-    if args.num_processes > 1 or args.coordinator:
-        raise NotImplementedError(f"--num_processes/--coordinator {MULTI_DEVICE}")
+    if args.devices is not None and args.devices < 1:
+        raise ValueError(f"--devices {args.devices}: at least 1")
+    if args.num_processes < 1:
+        raise ValueError(f"--num_processes {args.num_processes}: at least 1")
+    if args.num_processes > 1 and not args.coordinator:
+        raise ValueError(f"--num_processes {args.num_processes} needs --coordinator host:port, "
+                         "the rendezvous of the processes")
+    if not 0 <= args.process_id < args.num_processes:
+        raise ValueError(f"--process_id {args.process_id} is not in [0, --num_processes "
+                         f"{args.num_processes})")
+    if args.coordinator and args.devices not in (None, 1):
+        raise ValueError("--devices spawns the ranks of one host; with --coordinator each "
+                         "process is one rank")
     if args.model_name != "v2ce_3d":
         raise NotImplementedError(
             f"--model_name {args.model_name!r}: the JAX trainer builds V2ce3d whatever "
@@ -148,20 +173,88 @@ def write_preview(path, pred, batch):
     batch_show(imgs, cols=3, titles=titles, save_path=path)
 
 
+def _world_from_env(args):
+    """(rendezvous, processes, this rank, local rank) of a world started
+    outside this process (--coordinator, or torchrun's variables), or
+    None."""
+    if args.coordinator or args.num_processes > 1:
+        return (args.coordinator, args.num_processes, args.process_id,
+                int(os.environ.get("LOCAL_RANK", 0)))
+    if int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        return ("env://", int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]),
+                int(os.environ.get("LOCAL_RANK", 0)))
+    return None
+
+
+def _available(args, dev, torch) -> int:
+    """Devices a spawned world may take: --devices, else every visible GPU
+    for `--device cuda` (1 for a named card or the CPU)."""
+    named = dev.type == "cuda" and dev.index is not None
+    if args.devices is None:
+        return torch.cuda.device_count() if dev.type == "cuda" and not named else 1
+    if args.devices > 1 and named:
+        raise ValueError(f"--devices {args.devices} with --device {dev}: name no card to "
+                         "train over several")
+    if dev.type == "cuda" and args.devices > torch.cuda.device_count():
+        raise ValueError(f"--devices {args.devices} is more than the "
+                         f"{torch.cuda.device_count()} visible GPU(s)")
+    return args.devices
+
+
 def main(argv=None):
     """Train (or, with --test_only, evaluate). Returns {'work_dir', 'state',
     'step_s': wall seconds of each train step, synchronised, 'evals':
-    each eval's aggregated metrics}."""
+    each eval's aggregated metrics}; over spawned ranks, rank 0's, with
+    'state' None and 'ranks' each rank's."""
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=getattr(logging, args.logging_level.upper()))
     check_args(args)
 
     import torch
 
+    from v2ce_toolbox_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("train.main: no CUDA device; pass --device cpu to train on the CPU")
+    world = _world_from_env(args)
+    if world is not None:
+        url, n, rank, local = world
+        if args.batch_size % n:
+            raise ValueError(f"--batch_size {args.batch_size} does not split over {n} processes")
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", local)
+        mesh = pmesh.init_distributed(url, n, rank, device=dev)
+        try:
+            return train(args, mesh.device, mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+    n = pmesh.data_parallel_size(args.batch_size, _available(args, dev, torch))
+    if n == 1:
+        return train(args, dev, None)
+    logger.info("data-parallel over %d ranks, global batch %d", n, args.batch_size)
+    devices = [torch.device("cuda", r) for r in range(n)] if dev.type == "cuda" else ["cpu"] * n
+    ranks = pmesh.launch(_train_rank, n, args=(args,), devices=devices)
+    return dict(ranks[0], state=None, ranks=ranks)
+
+
+def _train_rank(mesh, args):
+    """One spawned rank of `main`: its result without the state."""
+    out = train(args, mesh.device, mesh)
+    out.pop("state")
+    return out
+
+
+def train(args, dev, mesh):
+    """The run of `main` on device `dev`: alone (mesh None) or as one rank of
+    a data-parallel `mesh`."""
+    import torch
+
     from v2ce_toolbox_tpu_torch.config import ModelConfig, TrainConfig
     from v2ce_toolbox_tpu_torch.data.event_pack_dataset import EventPackDataset
     from v2ce_toolbox_tpu_torch.data.loader import device_prefetch, iterate_batches
     from v2ce_toolbox_tpu_torch.models import V2ce3d
+    from v2ce_toolbox_tpu_torch.parallel.mesh import gather_to_lead
     from v2ce_toolbox_tpu_torch.train.gan import make_discriminator
     from v2ce_toolbox_tpu_torch.train.state import create_train_state
     from v2ce_toolbox_tpu_torch.train.step import make_eval_step, make_train_step
@@ -171,16 +264,15 @@ def main(argv=None):
         save_checkpoint,
     )
 
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("train.main: no CUDA device; pass --device cpu to train on the CPU")
     cuda = dev.type == "cuda"
+    lead = mesh is None or mesh.is_lead
     torch.manual_seed(args.seed)
 
     exp = args.exp_name or time.strftime("%Y%m%d-%H%M%S")
     work_dir = op.join(args.log_dir, exp)
     ckpt_dir = op.join(work_dir, "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if lead:
+        os.makedirs(ckpt_dir, exist_ok=True)
 
     cfg = TrainConfig(
         lr=args.lr, weight_decay=args.weight_decay,
@@ -200,7 +292,7 @@ def main(argv=None):
     model = V2ce3d(ModelConfig(base_num_channels=args.base_num_channels,
                                num_encoders=args.num_encoders))
     disc = make_discriminator(args.gan_3d_conv) if "gan" in args.loss else None
-    state = create_train_state(model, cfg, disc=disc, seed=args.seed)
+    state = create_train_state(model, cfg, disc=disc, seed=args.seed, mesh=mesh)
     model.to(dev)
     if disc is not None:
         disc.to(dev)
@@ -211,12 +303,20 @@ def main(argv=None):
         logger.info("resumed from checkpoint %s at step %d", ckpt, state.step)
 
     train_step = make_train_step(model, cfg, disc=disc, gan_k=args.gan_k,
-                                 use_3d_disc=args.gan_3d_conv, steps_per_epoch=steps_per_epoch)
-    eval_step = make_eval_step(model, cfg, metric_names=[m.lower() for m in args.metrics])
+                                 use_3d_disc=args.gan_3d_conv, steps_per_epoch=steps_per_epoch,
+                                 mesh=mesh)
+    eval_step = make_eval_step(model, cfg, metric_names=[m.lower() for m in args.metrics],
+                               mesh=mesh)
 
     best_f1 = -1.0
     recorder_dir = op.join(work_dir, "recorder")
     step_s, evals = [], []
+    metrics_log = open(op.join(work_dir, "metrics.jsonl"), "a") if lead else None
+
+    def log_line(obj):
+        if metrics_log is not None:
+            metrics_log.write(json.dumps(obj) + "\n")
+            metrics_log.flush()
 
     def predict(batch):
         with torch.no_grad():
@@ -226,16 +326,23 @@ def main(argv=None):
         nonlocal best_f1
         agg, n_b = {}, 0
         batches = iterate_batches(val_ds, args.batch_size, shuffle=False,
-                                  num_workers=args.num_workers)
+                                  num_workers=args.num_workers, mesh=mesh)
         for batch in device_prefetch(batches, dev):
             m = eval_step(state, batch)
             if n_b < args.record_predictions:
-                os.makedirs(recorder_dir, exist_ok=True)
-                with open(op.join(recorder_dir, f"val-e{epoch}-b{n_b}.pkl"), "wb") as f:
-                    pickle.dump({"pred_voxels": predict(batch).cpu().numpy(),
-                                 "gt_voxels": batch["voxels"].cpu().numpy(),
-                                 "epoch": epoch}, f)
-            if args.dump_previews and n_b == 0:
+                # the whole global batch, in rank order
+                parts = gather_to_lead((predict(batch).cpu().numpy(),
+                                        batch["voxels"].cpu().numpy()), mesh)
+                if lead:
+                    import numpy as np
+
+                    os.makedirs(recorder_dir, exist_ok=True)
+                    with open(op.join(recorder_dir, f"val-e{epoch}-b{n_b}.pkl"), "wb") as f:
+                        pickle.dump({"pred_voxels": np.concatenate([p for p, _ in parts]),
+                                     "gt_voxels": np.concatenate([g for _, g in parts]),
+                                     "epoch": epoch}, f)
+            if args.dump_previews and n_b == 0 and lead:
+                # the global batch's first item is rank 0's first
                 write_preview(op.join(work_dir, "previews", f"epoch{epoch}.png"),
                               predict(batch), batch)
             for k, v in m.items():
@@ -245,25 +352,25 @@ def main(argv=None):
                 break
         agg = {k: v / max(n_b, 1) for k, v in agg.items()}
         agg["epoch"] = epoch
-        metrics_log.write(json.dumps({"eval": agg}) + "\n")
-        metrics_log.flush()
+        log_line({"eval": agg})
         logger.info("eval epoch %d: %s", epoch, {k: round(v, 4) for k, v in agg.items()})
         evals.append(agg)
         f1 = agg.get("BinaryMatchF1_sum_c", 0.0)
         if f1 > best_f1:
             best_f1 = f1
-            save_checkpoint(op.join(ckpt_dir, f"best-epoch={epoch}"), state)
-        save_checkpoint(op.join(ckpt_dir, "last"), state)
+            save_checkpoint(op.join(ckpt_dir, f"best-epoch={epoch}"), state, mesh)
+        save_checkpoint(op.join(ckpt_dir, "last"), state, mesh)
         return agg
 
-    with open(op.join(work_dir, "metrics.jsonl"), "a") as metrics_log:
+    try:
         if args.test_only:
             run_eval(-1)
             return {"work_dir": work_dir, "state": state, "step_s": step_s, "evals": evals}
         for epoch in range(args.max_epochs):
             t0 = time.time()
             batches = iterate_batches(train_ds, args.batch_size, shuffle=True,
-                                      seed=args.seed + epoch, num_workers=args.num_workers)
+                                      seed=args.seed + epoch, num_workers=args.num_workers,
+                                      mesh=mesh)
             for i, batch in enumerate(device_prefetch(batches, dev)):
                 ts = time.perf_counter()
                 state, logs = train_step(state, batch)
@@ -273,13 +380,15 @@ def main(argv=None):
                 if i % args.log_frequency == 0:
                     line = {k: float(v) for k, v in logs.items()}
                     line.update(epoch=epoch, step=i, global_step=state.step)
-                    metrics_log.write(json.dumps({"train": line}) + "\n")
-                    metrics_log.flush()
+                    log_line({"train": line})
                     logger.info("epoch %d step %d loss %.4f", epoch, i, line["loss"])
                 if args.max_steps_per_epoch and i + 1 >= args.max_steps_per_epoch:
                     break
             logger.info("epoch %d done in %.1fs", epoch, time.time() - t0)
             run_eval(epoch)
+    finally:
+        if metrics_log is not None:
+            metrics_log.close()
     return {"work_dir": work_dir, "state": state, "step_s": step_s, "evals": evals}
 
 

@@ -11,6 +11,7 @@ import functools
 from typing import Callable, Dict, Sequence
 
 import torch
+import torch.distributed as dist
 
 from v2ce_toolbox_tpu_torch.train.losses import _avg_pool_nd, _to_bp_lc_hw
 
@@ -37,21 +38,27 @@ def binary_match(pred: torch.Tensor, y: torch.Tensor, op_type: str = "raw",
     return (p == g).float().mean()
 
 
-def f1score(pred_binary: torch.Tensor, y_binary: torch.Tensor) -> torch.Tensor:
-    """F1 on {0,1} arrays."""
+def f1score(pred_binary: torch.Tensor, y_binary: torch.Tensor, mesh=None) -> torch.Tensor:
+    """F1 on {0,1} arrays. A ratio of batch sums: under a data-parallel
+    `mesh` tp, fp and fn are summed over the ranks first, so every rank
+    holds the global batch's F1."""
     pred_binary = pred_binary.float()
     y_binary = y_binary.float()
     tp = torch.sum(pred_binary * y_binary)
     fp = torch.sum(pred_binary * (1 - y_binary))
     fn = torch.sum((1 - pred_binary) * y_binary)
+    if mesh is not None:
+        counts = torch.stack([tp, fp, fn])
+        dist.all_reduce(counts)
+        tp, fp, fn = counts.unbind()
     precision = tp / (tp + fp + 1e-8)
     recall = tp / (tp + fn + 1e-8)
     return 2 * precision * recall / (precision + recall + 1e-8)
 
 
 def binary_match_f1(pred: torch.Tensor, y: torch.Tensor, op_type: str = "sum_cp",
-                    threshold: float = 0.01) -> torch.Tensor:
-    return f1score(_reduce(pred, op_type) > threshold, _reduce(y, op_type) > threshold)
+                    threshold: float = 0.01, mesh=None) -> torch.Tensor:
+    return f1score(_reduce(pred, op_type) > threshold, _reduce(y, op_type) > threshold, mesh)
 
 
 def pool_mse(pred: torch.Tensor, y: torch.Tensor, kernel_size: int = 2) -> torch.Tensor:
@@ -82,8 +89,11 @@ def build_metric_suite(
     acc_types: Sequence[str] = ("raw", "sum_c", "sum_cp"),
     f1_types: Sequence[str] = ("raw", "sum_c", "sum_cp"),
     poolmse_kernel_sizes: Sequence[int] = (2, 4),
+    mesh=None,
 ) -> Dict[str, Callable]:
-    """{metric name: fn(pred, y)}, the JAX suite's names."""
+    """{metric name: fn(pred, y)}, the JAX suite's names. Under a
+    data-parallel `mesh` the F1 metrics are the global batch's on every
+    rank; the others are means, which average exactly over equal blocks."""
     suite: Dict[str, Callable] = {}
     names = [n.lower() for n in names]
     if "acc" in names:
@@ -93,7 +103,8 @@ def build_metric_suite(
             suite[f"BinaryMatch_{t}"] = functools.partial(binary_match, op_type=t)
     if "binarymatchf1" in names:
         for t in f1_types:
-            suite[f"BinaryMatchF1_{t}"] = functools.partial(binary_match_f1, op_type=t)
+            suite[f"BinaryMatchF1_{t}"] = functools.partial(binary_match_f1, op_type=t,
+                                                            mesh=mesh)
     if "meanratio" in names:
         suite["MeanRatio"] = mean_ratio
     if "poolmse" in names:

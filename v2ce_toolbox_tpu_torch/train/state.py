@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from v2ce_toolbox_tpu_torch.config import TrainConfig
+from v2ce_toolbox_tpu_torch.parallel.mesh import broadcast_module
 from v2ce_toolbox_tpu_torch.train.gan import init_discriminator, make_disc_optimizer
 from v2ce_toolbox_tpu_torch.utils.weights import init_weights
 
@@ -81,10 +82,12 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, cfg: TrainConfig, *, disc: Optional[nn.Module] = None,
-                       seed: Optional[int] = None, init: bool = True) -> TrainState:
+                       seed: Optional[int] = None, init: bool = True, mesh=None) -> TrainState:
     """The state of a fresh run: with `init`, the model and the
     discriminator take seeded random weights (seed, seed + 1), else they
-    keep theirs."""
+    keep theirs. Under a data-parallel `mesh` both move to the rank's
+    device and take rank 0's weights and buffers, so every rank starts
+    from one state."""
     seed = cfg.seed if seed is None else seed
     if init:
         init_weights(model, seed)
@@ -93,4 +96,8 @@ def create_train_state(model: nn.Module, cfg: TrainConfig, *, disc: Optional[nn.
         if init:
             init_discriminator(disc, seed + 1)
         disc_opt = make_disc_optimizer(trainable(disc))
+    if mesh is not None:
+        for module in (model, disc):
+            if module is not None:
+                broadcast_module(module.to(mesh.device), mesh)
     return TrainState(model=model, opt=make_optimizer(model, cfg), disc=disc, disc_opt=disc_opt)

@@ -12,6 +12,15 @@ The JAX step runs the generator's forward twice, once for the
 discriminator's input (its state updates dropped) and once inside the
 differentiated loss, both from the same parameters and state: the same
 values, so the port runs it once and detaches it for step 2.
+
+With a data-parallel `mesh` (`parallel/mesh.py`) the step is the JAX mesh
+step on the global batch, each rank holding its block: BatchNorm takes the
+global batch's statistics, both optimizers see gradients averaged over the
+ranks (an explicit all_reduce after each backward, not DDP: the
+adversarial term switches the discriminator's `requires_grad` off, so the
+set of parameters with gradients changes from one backward to the next),
+and the logs are the global batch's. Parameters, BN statistics and
+spectral-norm vectors stay identical on every rank.
 """
 
 from __future__ import annotations
@@ -21,10 +30,12 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from v2ce_toolbox_tpu_torch.config import TrainConfig
+from v2ce_toolbox_tpu_torch.models.layers import use_global_batch
+from v2ce_toolbox_tpu_torch.parallel.mesh import average_gradients, reduce_mean
 from v2ce_toolbox_tpu_torch.train.gan import discriminator_update, generator_adversarial_loss
 from v2ce_toolbox_tpu_torch.train.losses import compose_losses
 from v2ce_toolbox_tpu_torch.train.metrics import build_metric_suite
-from v2ce_toolbox_tpu_torch.train.state import TrainState, make_lr_schedule, set_lr
+from v2ce_toolbox_tpu_torch.train.state import TrainState, make_lr_schedule, set_lr, trainable
 from v2ce_toolbox_tpu_torch.utils import runtime
 
 
@@ -61,13 +72,15 @@ def check_trainable(model) -> None:
 
 def make_train_step(model, cfg: TrainConfig, *, disc=None, gan_k: int = 3,
                     use_3d_disc: bool = False, steps_per_epoch: int = 1000,
-                    encoder_loss_fn=None):
+                    encoder_loss_fn=None, mesh=None):
     """train_step(state, batch) -> (state, logs), the state updated in
     place. batch: {'image_units': (B, L, H, W, 2), 'voxels': (B, L, H, W,
-    20)} on the model's device, plus 'imu' / 'physical_att' targets for
-    models with those outputs. logs: detached 0-dim tensors, 'loss',
-    'd_loss' and each term of the stack."""
+    20)} on the model's device (under a `mesh`, this rank's block of the
+    global batch), plus 'imu' / 'physical_att' targets for models with
+    those outputs. logs: detached 0-dim tensors, 'loss', 'd_loss' and each
+    term of the stack."""
     check_trainable(model)
+    use_global_batch(model, mesh)
     loss_names = tuple(cfg.loss.split("+"))
     schedule = make_lr_schedule(cfg, steps_per_epoch)
     use_gan = disc is not None and "gan" in loss_names
@@ -82,18 +95,20 @@ def make_train_step(model, cfg: TrainConfig, *, disc=None, gan_k: int = 3,
         if use_gan:
             state.disc.train()
             d_loss = discriminator_update(state.disc, state.disc_opt, pred, gt, gan_k=gan_k,
-                                          use_3d_conv=use_3d_disc)
+                                          use_3d_conv=use_3d_disc, mesh=mesh)
             gan_term = generator_adversarial_loss(state.disc, pred, use_3d_conv=use_3d_disc)
         loss, logs = compose_losses(pred, gt, loss_names, ef_type=cfg.ef_type,
                                     add_base_loss=cfg.add_base_loss, gan_loss_value=gan_term,
                                     encoder_loss_fn=encoder_loss_fn, pred_extras=pred_extras,
-                                    batch=batch)
+                                    batch=batch, mesh=mesh)
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
+        average_gradients(trainable(model), mesh)
         set_lr(state.opt, schedule, state.step)
         state.opt.step()
         state.step += 1
-        logs = {k: v.detach() for k, v in dict(logs, loss=loss, d_loss=d_loss).items()}
+        logs = reduce_mean({k: v.detach() for k, v in dict(logs, loss=loss,
+                                                          d_loss=d_loss).items()}, mesh)
         if runtime.debug_checks_enabled():
             runtime.check_finite(logs)
         return state, logs
@@ -104,10 +119,11 @@ def make_train_step(model, cfg: TrainConfig, *, disc=None, gan_k: int = 3,
 def make_eval_step(model, cfg: TrainConfig, *,
                    metric_names: Sequence[str] = ("binarymatch", "binarymatchf1", "poolmse",
                                                   "l1"),
-                   encoder_loss_fn=None):
+                   encoder_loss_fn=None, mesh=None):
     """eval_step(state, batch) -> {metric: 0-dim tensor, 'val_loss': the
-    stack without the GAN}, the model in eval mode, without gradients."""
-    suite = build_metric_suite(metric_names)
+    stack without the GAN}, the model in eval mode, without gradients;
+    under a `mesh`, the global batch's values on every rank."""
+    suite = build_metric_suite(metric_names, mesh=mesh)
     loss_names = tuple(n for n in cfg.loss.split("+") if n != "gan")
     encoder_loss_fn = _maybe_encoder_loss(loss_names, encoder_loss_fn)
 
@@ -117,9 +133,9 @@ def make_eval_step(model, cfg: TrainConfig, *,
         loss, _ = compose_losses(pred, batch["voxels"], loss_names, ef_type=cfg.ef_type,
                                  add_base_loss=cfg.add_base_loss,
                                  encoder_loss_fn=encoder_loss_fn, pred_extras=pred_extras,
-                                 batch=batch)
+                                 batch=batch, mesh=mesh)
         out = {name: fn(pred, batch["voxels"]) for name, fn in suite.items()}
         out["val_loss"] = torch.as_tensor(loss)
-        return out
+        return reduce_mean(out, mesh)
 
     return step

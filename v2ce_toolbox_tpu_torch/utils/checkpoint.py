@@ -16,13 +16,20 @@ from typing import Any, Optional
 
 import torch
 
+from v2ce_toolbox_tpu_torch.parallel.mesh import barrier
 from v2ce_toolbox_tpu_torch.train.state import TrainState
 
 
-def save_checkpoint(path: str, state) -> None:
+def save_checkpoint(path: str, state, mesh=None) -> None:
     """Write a TrainState (or any picklable tree of tensors) to `path`,
-    through a temporary file, so a crash leaves the old one whole."""
+    through a temporary file, so a crash leaves the old one whole. Under a
+    data-parallel `mesh` (every rank holding the same state) rank 0 alone
+    writes, and every rank returns once the file is whole."""
     from v2ce_toolbox_tpu_torch.train.state import TrainState
+
+    if mesh is not None and not mesh.is_lead:
+        barrier(mesh)
+        return
 
     tree = state
     if isinstance(state, TrainState):
@@ -35,6 +42,7 @@ def save_checkpoint(path: str, state) -> None:
     tmp = op.join(head, f".{name}.tmp")
     torch.save(tree, tmp)
     os.replace(tmp, path)
+    barrier(mesh)
 
 
 def load_checkpoint(path: str, target: Optional[Any] = None) -> Any:
