@@ -207,6 +207,22 @@ Phases, any failure exits non-zero before the result lines:
      every visible GPU, 2 steps and the eval on phase 14's packets, each
      rank's ms a step. A rank that fails or outlives DP_WALL_S fails the
      phase.
+ 17. the probe harness's 24 stage-1 and stage-2 probes (`probes_stage1`,
+     `probes_stage2`: the sampler's phases, sorts, the flatten, the fused
+     wire path's steps, generation, the strategies, bf16 fidelity, the
+     matmul, copy and conv rooflines; the V2ce3d forward per configuration
+     and batch, K9 and K10 against cuDNN), each once at its JAX shapes
+     through `perf_probe.main` with N_PROBE17_ITERS timed runs a call,
+     counted: every kernel the probe names (its `KERNELS`) must launch, no
+     line may print FAILED, every number it returns must be finite (None
+     only where it prints "not ported" or "not applicable"), and K9's
+     `pallas_conv` rel_err (from the f64 sum of the same values) within
+     CONV_REL_TOL (TF32 off); each probe's seconds go into the kernels
+     line's `probe_seconds`. Then torch.profiler over one fused stage-2
+     window (`sample_rows` and `driver._flatten_rows` on the probes'
+     voxels): wall and device-busy ms, the top kernels, and the host's
+     kernel launches, async copies and stream syncs
+     (`fused_window_profile`; not gated).
 The line before the last is a JSON object of per-kernel results (its
 `launches` is the count of the kernel's own path, KERNEL_PATH, and
 `launches_by_path` every counted path's count; K9's and K10's times are
@@ -300,6 +316,12 @@ TRAIN_DEAD_BIAS = "downsample.0.bias"
 # world's wall limit and collective timeout (s)
 DP_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, H, W)
 DP_WALL_S, DP_COLLECTIVE_S = 400, 120
+# phase 17, the stage-1 and stage-2 probes: timed runs a call, and the
+# results a probe may leave None (the JAX options the port does not carry,
+# which print "not ported" or "not applicable")
+N_PROBE17_ITERS = 5
+PROBE17_NOT_PORTED = {"fused_dec": {("dec3", "fused-k64")},
+                      "model_overhead": {"model[ko:all,no_sn,no_bn]"}}
 # phase 15, the remaining models and utilities: the V2ce2d and UNetPlain3D
 # windows (frames; the card-vs-CPU comparisons run at CMP_HW, the full
 # 260x346 forwards on the card alone), the ResNetDiscriminator's batch (one
@@ -1441,11 +1463,13 @@ def make_recording(np, n, h, w, seed=0, noise=0):
     return images, image_ts, event_inds, events, rng.randn(len(imu_ts), 6), imu_ts
 
 
-def profile_pair_flow(torch, fn, smi, top=8):
-    """torch.profiler over one warm pair-flow call: wall ms, the device's
-    busy ms (the sum of its kernels' and copies' times; the operators that
-    launch them are left out, so nothing counts twice) and the kernels
-    that take the most of it."""
+def profile_call(torch, fn, smi, label, top=8):
+    """torch.profiler over one warm call: wall ms, the device's busy ms (the
+    sum of its kernels' and copies' times; the operators that launch them
+    are left out, so nothing counts twice), the kernels that take the most
+    of it, and the CUDA runtime calls the host made (kernel launches, async
+    copies, stream syncs). Returns {wall_ms, busy_ms (None where the
+    profiler saw no device activity), and the call counts}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1456,19 +1480,27 @@ def profile_pair_flow(torch, fn, smi, top=8):
         fn()
         torch.cuda.synchronize()
         wall = (time.time() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+    events = prof.key_averages()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
             and not e.key.startswith("Activity Buffer")]
-    busy = sum(r[1] for r in rows)
+    calls = {"kernel_launches": "cudaLaunchKernel", "async_copies": "cudaMemcpyAsync",
+             "stream_syncs": "cudaStreamSynchronize"}
+    out = {"wall_ms": wall, "busy_ms": None,
+           **{k: sum(e.count for e in events if e.key.startswith(name))
+              for k, name in calls.items()}}
+    host = "; host: " + ", ".join(f"{k.replace('_', ' ')} {out[k]}" for k in calls)
     if not rows:
-        log(f"[profile] pair-flow call: {wall:.2f} ms wall; device time not measured (the "
-            "profiler saw no device activity)")
-        return
+        log(f"[profile] {label}: {wall:.2f} ms wall; device time not measured (the "
+            f"profiler saw no device activity){host}")
+        return out
+    busy = out["busy_ms"] = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    log(f"[profile] pair-flow call ({PAIRS} pairs): {wall:.2f} ms wall, device busy "
-        f"{busy:.2f} ms ({busy / wall:.1%}) [{smi}]")
+    log(f"[profile] {label}: {wall:.2f} ms wall, device busy {busy:.2f} ms ({busy / wall:.1%})"
+        f"{host} [{smi}]")
     for name, ms, count in rows[:top]:
         log(f"[profile]   {ms:8.3f} ms {ms / busy:6.1%} x{count:<4d} {name[:90]}")
+    return out
 
 
 def data_phase(torch, np, dev, counted, smi):
@@ -1560,7 +1592,8 @@ def data_phase(torch, np, dev, counted, smi):
         f"plain {r['plain_ms']:.4f} ms "
         f"({r['plain_device_ms']:.4f}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
     del calls
-    profile_pair_flow(torch, lambda: pair_flow(images[:PAIRS], images[1:PAIRS + 1]), smi)
+    profile_call(torch, lambda: pair_flow(images[:PAIRS], images[1:PAIRS + 1]), smi,
+                 f"pair-flow call ({PAIRS} pairs)")
 
     # (b) FastFlowNet on the card against the CPU, the same weights
     cpu_flow = mvsec.fastflownet_pair_flow(sd, device="cpu")
@@ -2003,7 +2036,7 @@ def probe_phase(torch, np, dev, counted, smi):
         r["bound_by"] = "operations" if r.pop("t_ops") >= r.pop("t_bytes") else "bytes"
 
     # (b) the probe CLI, all eight probes, counted
-    probes = list(perf_probe.PROBES)
+    probes = list(perf_probe.KERNEL_PROBES)
     tee = Tee(sys.stdout)
     t0 = time.time()
     with contextlib.redirect_stdout(tee):
@@ -2023,6 +2056,77 @@ def probe_phase(torch, np, dev, counted, smi):
         f"(64 KB blocks), {roof['row_rate'] / 1e9:.1f} GB/s (704 KB blocks) [{smi}]")
     return results, errs, {"phase 12": rates, "probe CLI": {k: roof[k] for k in (
         "op_rate", "ilp_rate", "stream_rate", "row_rate")}}
+
+
+def _probe_numbers(res, key=()):
+    """(key path, value) of every leaf of a probe's result (nested dicts)."""
+    for k, v in res.items():
+        if isinstance(v, dict):
+            yield from _probe_numbers(v, key + (k,))
+        else:
+            yield key + (k,), v
+
+
+def probes_phase(torch, np, counted, smi):
+    """Phase 17: the 24 stage-1 and stage-2 probes of the probe harness
+    (`probes_stage1`, `probes_stage2`), each once at its JAX shapes through
+    `perf_probe.main`, counted: every kernel the probe names must launch;
+    no line may print FAILED; every number it returns must be finite (None
+    only where the probe prints "not ported" or "not applicable"); K9's
+    rel_err in `pallas_conv` (from the conv of the same values summed in
+    f64, relative to its largest output, as phase 12 holds K12's f32 route)
+    within CONV_REL_TOL of its output dtype (f32 in both input dtypes; TF32
+    off). Returns ({probe: result}, {probe: seconds})."""
+    from v2ce_toolbox_tpu_torch.tools import perf_probe, probes_stage1, probes_stage2
+
+    kernels = {**probes_stage2.KERNELS, **probes_stage1.KERNELS}
+    results, seconds = {}, {}
+    iters, perf_probe.N_ITERS = perf_probe.N_ITERS, N_PROBE17_ITERS
+    t_phase = time.time()
+    try:
+        for name, want in kernels.items():
+            tee = Tee(sys.stdout)
+            t0 = time.time()
+            with contextlib.redirect_stdout(tee):
+                out = counted(f"probe {name}", want, lambda name=name: perf_probe.main([name]),
+                              f"python -m v2ce_toolbox_tpu_torch.tools.perf_probe {name}")
+            seconds[name] = time.time() - t0
+            torch.cuda.empty_cache()
+            failed = [ln for ln in "".join(tee.parts).splitlines() if "FAILED" in ln]
+            if failed:
+                raise AssertionError(f"probe {name} printed FAILED: {failed}")
+            res = results[name] = out[name]
+            allowed = PROBE17_NOT_PORTED.get(name, set())
+            bad = [(k, v) for k, v in _probe_numbers(res)
+                   if not (v is None and k[-1] in allowed)
+                   and not (isinstance(v, (int, float)) and np.isfinite(v))]
+            if bad:
+                raise AssertionError(f"probe {name} returned non-finite numbers: {bad}")
+    finally:
+        perf_probe.N_ITERS = iters
+    tol = CONV_REL_TOL["float32"]                 # K9's output is f32 in both dtypes
+    rel = {f"{shape} {dt}": r["rel_err"] for (shape, dt), r in results["pallas_conv"].items()}
+    log("[probes] pallas_conv K9 rel_err from the conv of the same values summed in f64: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + f" (limit {tol:g})")
+    if len(rel) != 2 * len(probes_stage1.PALLAS_CONV_SHAPES) or max(rel.values()) > tol:
+        raise AssertionError(f"pallas_conv: K9 rel_err past {tol:g} or a shape missing: {rel}")
+    # where a window's stage-2 time goes: torch.profiler over one fused
+    # window (`fused_phases`' last step, the whole `driver._flatten_rows`)
+    from v2ce_toolbox_tpu_torch.config import SamplerConfig
+    from v2ce_toolbox_tpu_torch.ops.ldati import make_draw
+
+    dev = torch.device(DEVICE)
+    v = probes_stage2.voxels(dev)
+    window = probes_stage2.fused_phase_steps(v, make_draw(0, 0, dev), SamplerConfig(),
+                                             probes_stage2.offsets(v.shape[0], dev))
+    results["fused window profile"] = profile_call(
+        torch, window["+ merge + side"], smi, "fused window (sample_rows + _flatten_rows, "
+        f"{tuple(v.shape)})")
+    del v, window
+    torch.cuda.empty_cache()
+    log(f"[probes] phase 17 in {time.time() - t_phase:.1f} s; per probe (s): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + f" [{smi}]")
+    return results, seconds
 
 
 def _train_rel(a, b):
@@ -2870,6 +2974,9 @@ def main():
     # 16. data parallelism over ranks, each rank counted
     data_parallel_phase(torch, np, counted, smi)
 
+    # 17. the stage-1 and stage-2 probes, each counted
+    probe17, probe17_seconds = probes_phase(torch, np, counted, smi)
+
     # 6. stage 1 on the card against the CPU: the full-width model, seeded
     # weights, one 16-frame window of 64x96 (TF32 off; cuDNN and the CPU
     # sum the conv products in other orders)
@@ -2930,7 +3037,8 @@ def main():
                                              "sector_floor_ms") if k in r}})
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "stage2_roofline": roofline_rates,
-                      "card": smi}))
+                      "probe_seconds": probe17_seconds,
+                      "fused_window_profile": probe17["fused window profile"], "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

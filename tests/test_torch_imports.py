@@ -61,6 +61,8 @@ MODULES = [
     "v2ce_toolbox_tpu_torch.tools.gen_phy_att",
     "v2ce_toolbox_tpu_torch.tools.overfit_demo",
     "v2ce_toolbox_tpu_torch.tools.perf_probe",
+    "v2ce_toolbox_tpu_torch.tools.probes_stage1",
+    "v2ce_toolbox_tpu_torch.tools.probes_stage2",
     "v2ce_toolbox_tpu_torch.tools.stage2_eval",
     "v2ce_toolbox_tpu_torch.tools.time_voxel_stat_calc",
     "v2ce_toolbox_tpu_torch.tools.vis_tools",

@@ -118,18 +118,16 @@ def _side_cap(frames: int, cap: int, span_us: int, delta_bits: int = DELTA_BITS,
     return -(-n // 2048) * 2048
 
 
-def _flatten_rows(rel: torch.Tensor, gvox: torch.Tensor, total_emit: torch.Tensor,
-                  cap_drop: torch.Tensor, offsets_us: torch.Tensor, *,
-                  h: int, w: int, capacity: int, frames: int, fps: int,
-                  skip_lead: int = 0, side_cap: int = 1 << 17,
-                  delta_bits: int = DELTA_BITS, x_bits: int = 9, monotone: bool = True):
-    """The wire format assembled on the sampler's post-sort rows, then one
-    merge (K3) into the flat stream (`driver.py:204-314` of the JAX
-    package).
+def _wire_rows(rel: torch.Tensor, gvox: torch.Tensor, total_emit: torch.Tensor,
+               cap_drop: torch.Tensor, offsets_us: torch.Tensor, *,
+               h: int, w: int, capacity: int, frames: int, fps: int,
+               skip_lead: int = 0, delta_bits: int = DELTA_BITS, x_bits: int = 9):
+    """The wire prep of `_flatten_rows`, elementwise on the sampler's
+    post-sort rows: the per-frame capacity clip, each event's absolute
+    in-chunk µs, payload, delta and record, and the side-list candidates.
 
-    Returns (words (b, N/32) int32 holding uint32 bits, kept, side_key,
-    n_side, side_total, dropped (F,)): dropped is the per-frame sampler
-    drop accounting, capacity clipping included."""
+    Returns (valid, t_abs (int64), recs_rows (int32), side_cand (int32,
+    INVALID where the record is no marker), dropped (F,))."""
     rr, wd = rel.shape
     cb = 9
     f = rr // cb
@@ -185,7 +183,17 @@ def _flatten_rows(rel: torch.Tensor, gvox: torch.Tensor, total_emit: torch.Tenso
     is_exc = valid & ((delta < 0) | (delta >= marker))
     delta_enc = torch.where(is_exc, marker, torch.clamp(delta, min=0))
     recs_rows = ((delta_enc << pbits) | payload).to(torch.int32)
+    side_cand = torch.where(is_exc, t_abs.to(torch.int32), INVALID)
+    return valid, t_abs, recs_rows, side_cand, dropped
 
+
+def _merge_wire(valid: torch.Tensor, t_abs: torch.Tensor, recs_rows: torch.Tensor, *,
+                h: int, w: int, delta_bits: int = DELTA_BITS, x_bits: int = 9):
+    """The records' one merge (K3) into the flat stream, bit-packed:
+    returns (words (b, N/32) int32 holding uint32 bits, kept)."""
+    rr, wd = recs_rows.shape
+    marker = (1 << delta_bits) - 1
+    pbits = 10 + x_bits
     flat_cap = rr * wd
     worst_rec = (marker << pbits) | ((w - 1) << 10) | ((h - 1) << 1) | 1
     if 0 <= worst_rec < INVALID:
@@ -197,21 +205,40 @@ def _flatten_rows(rel: torch.Tensor, gvox: torch.Tensor, total_emit: torch.Tenso
         _, (out_recs,), kept, _ = merge_sorted_rows(
             torch.where(valid, t_abs.to(torch.int32), INVALID),
             [torch.where(valid, recs_rows, 0)], nb=rr, cap=flat_cap)
-    words = pack_bits(out_recs[0], pbits + delta_bits)
+    return pack_bits(out_recs[0], pbits + delta_bits), kept[0]
+
+
+def _flatten_rows(rel: torch.Tensor, gvox: torch.Tensor, total_emit: torch.Tensor,
+                  cap_drop: torch.Tensor, offsets_us: torch.Tensor, *,
+                  h: int, w: int, capacity: int, frames: int, fps: int,
+                  skip_lead: int = 0, side_cap: int = 1 << 17,
+                  delta_bits: int = DELTA_BITS, x_bits: int = 9, monotone: bool = True):
+    """The wire format assembled on the sampler's post-sort rows
+    (`_wire_rows`), then one merge (K3) into the flat stream (`_merge_wire`)
+    and the side list (`driver.py:204-314` of the JAX package).
+
+    Returns (words (b, N/32) int32 holding uint32 bits, kept, side_key,
+    n_side, side_total, dropped (F,)): dropped is the per-frame sampler
+    drop accounting, capacity clipping included."""
+    valid, t_abs, recs_rows, side_cand, dropped = _wire_rows(
+        rel, gvox, total_emit, cap_drop, offsets_us, h=h, w=w, capacity=capacity,
+        frames=frames, fps=fps, skip_lead=skip_lead, delta_bits=delta_bits, x_bits=x_bits)
+    words, kept = _merge_wire(valid, t_abs, recs_rows, h=h, w=w, delta_bits=delta_bits,
+                              x_bits=x_bits)
 
     # side list: the markers' absolute µs in stream order; a time-sorted
     # row spans one bin, so it holds at most span/marker + 1 markers, while
     # a 'random' row can be all markers
+    rr, wd = side_cand.shape
     if monotone:
         side_chunk = side_row_cap = 4096 if wd >= 4096 else wd
     else:
         side_chunk, side_row_cap = min(4096, wd), wd
-    side_cand = torch.where(is_exc, t_abs.to(torch.int32), INVALID)
     side_rows, _, _, ns_tot = compact_rows(side_cand, (), cap=side_row_cap,
                                            chunk=side_chunk, algo="place")
     side_cap_eff = min(-(-side_cap // 128) * 128, rr * side_rows.shape[1])
     side_flat, _, n_side, _ = merge_sorted_rows(side_rows, (), nb=rr, cap=side_cap_eff)
-    return words, kept[0], side_flat[0], n_side[0], ns_tot.sum(), dropped
+    return words, kept, side_flat[0], n_side[0], ns_tot.sum(), dropped
 
 
 def _decode_packed_events(words: np.ndarray, side_key: np.ndarray, n: int,

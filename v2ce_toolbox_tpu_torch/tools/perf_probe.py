@@ -1,14 +1,22 @@
 #!/usr/bin/env python
-"""Probe harness of the port: the JAX package's `tools/perf_probe.py` probes
-that reach a hand-written kernel, at their shapes and with their print
-lines, on one card.
+"""Probe harness of the port: the 32 portable probes of the JAX package's
+`tools/perf_probe.py`, at their shapes and with their print lines, on one
+card.
 
     python -m v2ce_toolbox_tpu_torch.tools.perf_probe [probe ...] [--device cuda]
 
-Probes (all when none is named): compact, compact_algo (K2w, K2), quad,
-quad_s2 (K11), wino_pallas, wino_ablate (K12), window_lb (V2ce3d, K7 and
-the sampler on a 16-frame 260x346 window), stage2_roofline (K13-K16, K2 at
-the chain-compaction shape, torch.sort at (144, 16384), K4 gen_pack).
+Probes (all when none is named), under their JAX names: compact,
+compact_algo (K2w, K2), quad, quad_s2 (K11), wino_pallas, wino_ablate
+(K12), window_lb (V2ce3d, K7 and the sampler on a 16-frame 260x346
+window), stage2_roofline (K13-K16, K2 at the chain-compaction shape,
+torch.sort at (144, 16384), K4 gen_pack); the stage-2 splits of
+`probes_stage2` (sampler, sort, sampler_phases, gen, flatten,
+sampler_strategies, gen_compact, fused_pipeline, fused_phases,
+bf16_fidelity, roofline) and the stage-1 splits of `probes_stage1`
+(model, model_pad, model_bf16, model_bf16_pad, conv_iso, pallas_conv,
+model_pallas_bf16, model_pallas, model_subpixel, pallas_model, fused_dec,
+batch_scaling, model_overhead). The `devices:` line states the TF32
+settings every f32 number ran under.
 
 `timed_loop` is the median of warm CUDA-event timings of calls whose
 outputs are all reduced into a checksum that is fetched and must be finite
@@ -33,6 +41,8 @@ import time
 
 import numpy as np
 import torch
+
+from v2ce_toolbox_tpu_torch.tools import probes_stage1, probes_stage2
 
 N_ITERS = 10
 
@@ -518,7 +528,9 @@ def probe_stage2_roofline(dev, r=144, chunk=16384, seg=2 * 260 * 346, ks=(64, 25
     return res
 
 
-PROBES = {
+# the probes that reach the probe kernels (K2w, K7, K11-K16), then the
+# stage-2 and stage-1 probes of `probes_stage2` and `probes_stage1`
+KERNEL_PROBES = {
     "compact": probe_compact,
     "compact_algo": probe_compact_algo,
     "quad": probe_quad,
@@ -528,6 +540,7 @@ PROBES = {
     "window_lb": probe_window_lb,
     "stage2_roofline": probe_stage2_roofline,
 }
+PROBES = {**KERNEL_PROBES, **probes_stage2.PROBES, **probes_stage1.PROBES}
 
 
 def main(argv=None) -> dict:
@@ -543,8 +556,9 @@ def main(argv=None) -> dict:
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("perf_probe: --device cuda, but torch.cuda.is_available() is false")
-        print(f"devices: {torch.cuda.device_count()} x {torch.cuda.get_device_name(dev)}",
-              flush=True)
+        print(f"devices: {torch.cuda.device_count()} x {torch.cuda.get_device_name(dev)}; "
+              f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+              f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
     else:
         print(f"devices: {dev} (host clock; CPU numbers, not the card's)", flush=True)
     return {name: PROBES[name](dev) for name in (args.probes or list(PROBES))}
