@@ -223,6 +223,22 @@ Phases, any failure exits non-zero before the result lines:
      voxels): wall and device-busy ms, the top kernels, and the host's
      kernel launches, async copies and stream syncs
      (`fused_window_profile`; not gated).
+ 18. the stage tools and the v2 core's binned compaction, counted: (a)
+     `python -m v2ce_toolbox_tpu_torch.tools.perf_test_stage2` at its
+     defaults for 'slope', 'none' and 'random' (each path's kernels must
+     launch; joined to the kernels line as "perf_test_stage2 ..."), and one
+     of its calls card against CPU, byte for byte; (b) `tools.speed_test`
+     at its defaults in f32 and --bf16, its parameter and FLOP counts equal
+     to the host's count from shapes (the meta device); (c)
+     `sample_events(use_v3=False)` on PT18_FRAMES frames of the tool's
+     260x346 voxels at 30 fps, its `compact_dispatch` call replayed with
+     the binned route on the card and the CPU, identical, and binned
+     against flat timed in turns and profiled (not gated); (d) that
+     stream card against CPU, byte for byte, and its ms; (e)
+     `tools.vis_stage2`'s streams on the card's draws, card against CPU
+     counts, then its `main` (PNGs, or where matplotlib is missing exactly
+     a SystemExit naming it). The numbers go into the kernels line's
+     `stage_tools`.
 The line before the last is a JSON object of per-kernel results (its
 `launches` is the count of the kernel's own path, KERNEL_PATH, and
 `launches_by_path` every counted path's count; K9's and K10's times are
@@ -322,6 +338,14 @@ DP_WALL_S, DP_COLLECTIVE_S = 400, 120
 N_PROBE17_ITERS = 5
 PROBE17_NOT_PORTED = {"fused_dec": {("dec3", "fused-k64")},
                       "model_overhead": {"model[ko:all,no_sn,no_bn]"}}
+# phase 18, the stage tools: the frames of the v2 core's call whose
+# compaction runs both routes, and the timed runs of each
+PT18_FRAMES, N_PT18_TIMED = 24, 7
+# the kernels `tools.perf_test_stage2` launches per strategy: 'none' keeps
+# no multi pool and no over-cap row, so it needs no K2 outside the flatten
+PT18_KERNELS = {"slope": ("gen_compact", "compact_rows", "merge_sorted_rows"),
+                "none": ("gen_compact", "merge_sorted_rows"),
+                "random": ("compact_rows", "merge_sorted_rows")}
 # phase 15, the remaining models and utilities: the V2ce2d and UNetPlain3D
 # windows (frames; the card-vs-CPU comparisons run at CMP_HW, the full
 # 260x346 forwards on the card alone), the ResNetDiscriminator's batch (one
@@ -1469,7 +1493,8 @@ def profile_call(torch, fn, smi, label, top=8):
     are left out, so nothing counts twice), the kernels that take the most
     of it, and the CUDA runtime calls the host made (kernel launches, async
     copies, stream syncs). Returns {wall_ms, busy_ms (None where the
-    profiler saw no device activity), and the call counts}."""
+    profiler saw no device activity), the call counts, and top: the
+    leading kernels' [name, ms, count]}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1486,7 +1511,7 @@ def profile_call(torch, fn, smi, label, top=8):
             and not e.key.startswith("Activity Buffer")]
     calls = {"kernel_launches": "cudaLaunchKernel", "async_copies": "cudaMemcpyAsync",
              "stream_syncs": "cudaStreamSynchronize"}
-    out = {"wall_ms": wall, "busy_ms": None,
+    out = {"wall_ms": wall, "busy_ms": None, "top": [],
            **{k: sum(e.count for e in events if e.key.startswith(name))
               for k, name in calls.items()}}
     host = "; host: " + ", ".join(f"{k.replace('_', ' ')} {out[k]}" for k in calls)
@@ -1500,6 +1525,7 @@ def profile_call(torch, fn, smi, label, top=8):
         f"{host} [{smi}]")
     for name, ms, count in rows[:top]:
         log(f"[profile]   {ms:8.3f} ms {ms / busy:6.1%} x{count:<4d} {name[:90]}")
+        out["top"].append([name[:90], ms, count])
     return out
 
 
@@ -2894,6 +2920,164 @@ def data_parallel_phase(torch, np, counted, smi):
     log(f"[dp] phase 16 in {time.time() - t_phase:.1f} s")
 
 
+def stage_tools_phase(torch, np, counted, smi):
+    """Phase 18: the stage tools and the v2 core's binned route. (a)
+    `tools.perf_test_stage2` at its defaults per strategy, counted
+    (PT18_KERNELS), and one of its calls ('slope', 10
+    frames) card against CPU with the same draws; (b) `tools.speed_test` at
+    its defaults in f32 and bf16, counted, its parameter and FLOP counts
+    against the host's count from shapes; (c) `sample_events(use_v3=False)`
+    on PT18_FRAMES frames of the tool's voxels at 260x346, 30 fps, 'slope',
+    its `compact_dispatch` call recorded on the card and the CPU and
+    replayed with the binned route: binned identical card against CPU,
+    binned and flat timed in turns and each profiled (a finding, not a
+    gate); (d) that
+    `sample_events(use_v3=False)` stream card against CPU, byte for byte,
+    and its ms; (e) `tools.vis_stage2`'s streams on the card against the
+    CPU's counts, counted, then its `main`: PNGs where matplotlib is
+    installed, else exactly a SystemExit naming matplotlib. Returns the
+    phase's numbers for the kernels line."""
+    from v2ce_toolbox_tpu_torch.config import ModelConfig, SamplerConfig
+    from v2ce_toolbox_tpu_torch.events import to_recarrays
+    from v2ce_toolbox_tpu_torch.ops import ldati
+    from v2ce_toolbox_tpu_torch.tools import perf_test_stage2, speed_test, vis_stage2
+
+    t_phase = time.time()
+    dev = torch.device(DEVICE)
+    out, marks = {}, [("start", t_phase)]
+
+    def mark(part):
+        marks.append((part, time.time()))
+
+    def cpu_of(draw):
+        return lambda j, shape: draw(j, shape).cpu()
+
+    # (a) the stage-2 tool per strategy, then one call card against CPU
+    for strategy, kernels in PT18_KERNELS.items():
+        res = counted(f"perf_test_stage2 {strategy}", kernels,
+                      lambda: perf_test_stage2.main(["--strategy", strategy,
+                                                     "--device", DEVICE]),
+                      f"python -m v2ce_toolbox_tpu_torch.tools.perf_test_stage2 "
+                      f"--strategy {strategy}")
+        if not (res["events_per_call"] > 0 and np.isfinite(res["ms_per_frame"])):
+            raise AssertionError(f"perf_test_stage2 {strategy}: {res}")
+        out[f"perf_test_stage2 {strategy}"] = res
+        log(f"[tools] perf_test_stage2 {strategy}: {res['ms_per_frame']:.4f} ms/frame, "
+            f"{res['events_per_s'] / 1e6:.2f} M events/s, {res['events_per_frame']:.0f} "
+            f"events/frame [{smi}]")
+    y = torch.from_numpy(perf_test_stage2.voxels(10, H, W, 0.1))
+    draw = ldati.make_draw(0, 0, dev)
+    t0 = time.time()
+    card = to_recarrays(ldati.sample_events(y.to(dev), draw, SamplerConfig()))
+    plain = to_recarrays(ldati.sample_events(y, cpu_of(draw), SamplerConfig()))
+    if (sum(len(r) for r in card) == 0
+            or [r.tobytes() for r in card] != [r.tobytes() for r in plain]):
+        raise AssertionError("perf_test_stage2's call: the card differs from the CPU")
+    log(f"[tools] perf_test_stage2's 'slope' call, 10 frames: card == CPU "
+        f"({sum(len(r) for r in card)} events, {time.time() - t0:.1f} s)")
+    mark("a")
+
+    # (b) the stage-1 tool in f32 and bf16, its counts against the host's
+    for label, flags, dtype in [("f32", [], torch.float32),
+                                ("bf16", ["--bf16"], torch.bfloat16)]:
+        res = counted(f"speed_test {label}", (),
+                      lambda: speed_test.main(["--device", DEVICE, *flags]),
+                      f"python -m v2ce_toolbox_tpu_torch.tools.speed_test {' '.join(flags)}")
+        shape = res["shape"]
+        want = speed_test.counts(ModelConfig(compute_dtype=dtype), shape)
+        if (res["params"], res["flops"]) != want or not np.isfinite(res["ms"]):
+            raise AssertionError(f"speed_test {label}: {res} against the host's {want}")
+        out[f"speed_test {label}"] = res
+        log(f"[tools] speed_test {label} {shape}: {res['params']} params, {res['flops']} "
+            f"FLOPs (the host's count), {res['ms']:.2f} ms a forward, "
+            f"{res['tflops_per_s']:.2f} TFLOP/s [{smi}]")
+        torch.cuda.empty_cache()
+    mark("b")
+
+    # (c) the binned route against the flat one, on the v2 core's call
+    cfg = SamplerConfig()
+    v = torch.from_numpy(perf_test_stage2.voxels(PT18_FRAMES, H, W, 0.1))
+    draw = ldati.make_draw(18, 0, dev)
+    streams, calls = {}, {}
+    for where, vv, dd in [("card", v.to(dev), draw), ("cpu", v, cpu_of(draw))]:
+        cl = []
+        with record_calls([ldati], "compact_dispatch", cl):
+            streams[where] = ldati.sample_events(vv, dd, cfg, use_v3=False)
+        if len(cl) != 1:
+            raise AssertionError(f"sample_events(use_v3=False) made {len(cl)} "
+                                 "compact_dispatch calls")
+        calls[where] = cl[0]
+
+    def route(where, binned):
+        a, k = calls[where]
+        return ldati.compact_dispatch(*a, **dict(k, use_binned_compaction=binned))
+
+    binned = {where: route(where, True) for where in calls}
+    flat = route("card", False)
+    if any(not torch.equal(x.cpu(), z) for x, z in zip(binned["card"], binned["cpu"])):
+        raise AssertionError("the binned compaction on the card differs from the CPU")
+    tb, tf = time_pair(lambda: route("card", True), lambda: route("card", False), torch,
+                       n=N_PT18_TIMED)
+    nb, nf = int(binned["card"][2].sum()), int(flat[2].sum())
+    out["compact_dispatch"] = dict(binned_ms=tb, flat_ms=tf, binned_events=nb,
+                                   flat_events=nf, frames=PT18_FRAMES)
+    for label, binned_route in [("binned", True), ("flat", False)]:
+        out["compact_dispatch"][f"{label}_profile"] = profile_call(
+            torch, lambda: route("card", binned_route), smi,
+            f"compact_dispatch {label}, {PT18_FRAMES} frames")
+    log(f"[tools] compact_dispatch, {PT18_FRAMES} frames {H}x{W} at {FPS} fps 'slope': binned "
+        f"card == CPU ({nb} events, dropped {int(binned['card'][3].sum())}); binned "
+        f"{tb:.4f} ms, flat {tf:.4f} ms ({nf} events, dropped {int(flat[3].sum())}), "
+        f"binned/flat {tb / tf:.3f} [{smi}]")
+    del binned, flat, calls
+    mark("c")
+
+    # (d) the use_v3=False stream, card against CPU, and its time
+    card, plain = to_recarrays(streams["card"]), to_recarrays(streams["cpu"])
+    if (sum(len(r) for r in card) == 0
+            or [r.tobytes() for r in card] != [r.tobytes() for r in plain]):
+        raise AssertionError("sample_events(use_v3=False): the card differs from the CPU")
+    vd = v.to(dev)
+    ms = statistics.median(cuda_ms(lambda: ldati.sample_events(vd, draw, cfg, use_v3=False),
+                                   torch) for _ in range(N_PT18_TIMED))
+    out["sample_events use_v3=False"] = dict(ms=ms, events=sum(len(r) for r in card),
+                                             frames=PT18_FRAMES)
+    log(f"[tools] sample_events(use_v3=False), {PT18_FRAMES} frames: card == CPU "
+        f"({sum(len(r) for r in card)} events), {ms:.2f} ms [{smi}]")
+    del streams, vd
+    torch.cuda.empty_cache()
+    mark("d")
+
+    # (e) the samplers side by side, then the plots or the named exit
+    draw = ldati.make_draw(0, 0, dev)
+    got = counted("vis_stage2", (), lambda: vis_stage2.sampler_streams(DEVICE, draw=draw),
+                  "tools.vis_stage2.sampler_streams")
+    want = vis_stage2.sampler_streams("cpu", draw=cpu_of(draw))
+    counts = {name: len(s) for name, s in got.items()}
+    if counts != {name: len(s) for name, s in want.items()} or min(counts.values()) == 0:
+        raise AssertionError(f"vis_stage2: card {counts}, CPU "
+                             f"{ {name: len(s) for name, s in want.items()} }")
+    same = [name for name in got if got[name].tobytes() == want[name].tobytes()]
+    log(f"[tools] vis_stage2 streams, the card's draws: card == CPU counts {counts}; "
+        f"byte-identical: {same}")
+    plots = os.path.join(OUT, "vis_stage2")
+    try:
+        vis_stage2.main(["-o", plots, "--device", DEVICE])
+        pngs = sorted(os.listdir(plots))
+        if len(pngs) != len(counts) + 1:
+            raise AssertionError(f"vis_stage2 wrote {pngs}")
+        log(f"[tools] vis_stage2 main wrote {pngs}")
+    except SystemExit as e:
+        if "matplotlib" not in str(e.code) or e.code in (0, None):
+            raise AssertionError(f"vis_stage2 main exited with {e.code!r}") from e
+        log(f"[tools] vis_stage2 main without matplotlib: SystemExit({e.code!r})")
+    mark("e")
+    out["seconds"] = time.time() - t_phase
+    out["part_seconds"] = {p: t - marks[i][1] for i, (p, t) in enumerate(marks[1:])}
+    log(f"[tools] phase 18 in {out['seconds']:.1f} s, by part {out['part_seconds']} [{smi}]")
+    return out
+
+
 def main():
     import torch
 
@@ -2977,6 +3161,9 @@ def main():
     # 17. the stage-1 and stage-2 probes, each counted
     probe17, probe17_seconds = probes_phase(torch, np, counted, smi)
 
+    # 18. the stage tools and the binned v2 compaction, counted
+    stage_tools = stage_tools_phase(torch, np, counted, smi)
+
     # 6. stage 1 on the card against the CPU: the full-width model, seeded
     # weights, one 16-frame window of 64x96 (TF32 off; cuDNN and the CPU
     # sum the conv products in other orders)
@@ -3038,7 +3225,8 @@ def main():
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "stage2_roofline": roofline_rates,
                       "probe_seconds": probe17_seconds,
-                      "fused_window_profile": probe17["fused window profile"], "card": smi}))
+                      "fused_window_profile": probe17["fused window profile"],
+                      "stage_tools": stage_tools, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -48,7 +48,8 @@ def _jax_vars(port_model):
                                      num_encoders=2, num_residual_blocks=1)
 
 
-def test_state_dict_keys_are_the_reference_names(port_model):
+def test_from_jax_variables_round_trip(port_model):
+    # the state dict's keys are the reference names
     keys = set(port_model.state_dict())
     for k in ("UNet.head.conv3d.weight", "UNet.head.conv3d.bias",
               "UNet.encoders.0.conv1.weight", "UNet.encoders.1.bn1.running_mean",
@@ -57,9 +58,6 @@ def test_state_dict_keys_are_the_reference_names(port_model):
               "UNet.resblocks.0.conv2.module.weight_u",
               "UNet.decoders.1.conv1.module.weight_v", "UNet.pred.conv3d.weight"):
         assert k in keys, k
-
-
-def test_from_jax_variables_round_trip(port_model):
     sd = from_jax_variables(_jax_vars(port_model), num_encoders=2, num_residual_blocks=1)
     ref = port_model.state_dict()
     assert set(sd) == set(ref)
@@ -79,9 +77,7 @@ def test_forward_matches_jax(port_model):
     assert got.shape == (1, 3, 20, 26, 20)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
     assert float(got.abs().max()) > 0
-
-
-def test_eval_forward_does_not_touch_spectral_vectors(port_model):
+    # an eval forward does not touch the spectral vectors
     before = {k: v.clone() for k, v in port_model.state_dict().items() if "weight_u" in k}
     with torch.no_grad():
         port_model(torch.zeros(1, 2, 8, 8, 2))

@@ -112,20 +112,22 @@ def test_two_ranks_stage1_matches_the_jax_mesh(world, jax_run):
         assert r["voxels"].tobytes() == one.tobytes()
 
 
-@pytest.mark.parametrize("n", [2, 3])
-def test_runs_over_ranks_are_byte_identical(world, n):
-    one, many = world(1)[0], world(n)
-    for mode in ("run", "streaming"):
-        want, got = one[mode], many[0][mode]
-        a = np.load(want["event_stream_path"])["event_stream"]
-        b = np.load(got["event_stream_path"])["event_stream"]
-        assert a.dtype == b.dtype == EVENT_DTYPE and len(a) > 0
-        assert b.tobytes() == a.tobytes(), mode
-        assert got["num_events"] == want["num_events"]
-        with open(want["event_frame_video"], "rb") as f, open(got["event_frame_video"],
-                                                              "rb") as g:
-            assert f.read() == g.read(), mode
-        # the other ranks wrote nothing; the one folder holds rank 0's files
-        assert all("event_stream_path" not in r[mode] for r in many[1:])
-        assert sorted(os.listdir(os.path.dirname(got["event_stream_path"]))) == sorted(
-            os.path.basename(p) for p in (got["event_stream_path"], got["event_frame_video"]))
+def test_runs_over_ranks_are_byte_identical(world):
+    one = world(1)[0]
+    for n in (2, 3):
+        many = world(n)
+        for mode in ("run", "streaming"):
+            want, got = one[mode], many[0][mode]
+            a = np.load(want["event_stream_path"])["event_stream"]
+            b = np.load(got["event_stream_path"])["event_stream"]
+            assert a.dtype == b.dtype == EVENT_DTYPE and len(a) > 0
+            assert b.tobytes() == a.tobytes(), (n, mode)
+            assert got["num_events"] == want["num_events"]
+            with open(want["event_frame_video"], "rb") as f, \
+                    open(got["event_frame_video"], "rb") as g:
+                assert f.read() == g.read(), (n, mode)
+            # the other ranks wrote nothing; the one folder holds rank 0's files
+            assert all("event_stream_path" not in r[mode] for r in many[1:])
+            assert sorted(os.listdir(os.path.dirname(got["event_stream_path"]))) == sorted(
+                os.path.basename(p) for p in (got["event_stream_path"],
+                                              got["event_frame_video"]))

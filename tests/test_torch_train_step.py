@@ -165,51 +165,52 @@ def _close_to_max(got, want, name):
     assert err <= RTOL * np.abs(want).max() + ATOL, (name, err, np.abs(want).max())
 
 
-@pytest.mark.parametrize("i", [0, 1])
-def test_logs_match_jax(run, i):
-    (_, jlogs), tlogs, _ = run[0][i]
-    assert set(tlogs) == set(jlogs)
-    for k, v in tlogs.items():
-        np.testing.assert_allclose(v, jlogs[k], rtol=RTOL, atol=ATOL, err_msg=k)
+def test_logs_match_jax(run):
+    for i in (0, 1):
+        (_, jlogs), tlogs, _ = run[0][i]
+        assert set(tlogs) == set(jlogs)
+        for k, v in tlogs.items():
+            np.testing.assert_allclose(v, jlogs[k], rtol=RTOL, atol=ATOL, err_msg=f"{k} {i}")
 
 
-@pytest.mark.parametrize("i", [0, 1])
-def test_generator_state_matches_jax(run, i):
-    """Parameters, BN statistics and SN vectors after step i."""
-    (js, _), _, snap = run[0][i]
-    want = from_jax_variables(js.model_variables(), **NB)
-    assert snap["step"] == int(js.step) == i + 1
-    for k, v in want.items():
-        if not k.endswith("num_batches_tracked"):
-            _close(snap["model"][k], v.numpy(), k, LRS[i])
+def test_generator_state_matches_jax(run):
+    """Parameters, BN statistics and SN vectors after steps 0 and 1."""
+    for i in (0, 1):
+        (js, _), _, snap = run[0][i]
+        want = from_jax_variables(js.model_variables(), **NB)
+        assert snap["step"] == int(js.step) == i + 1
+        for k, v in want.items():
+            if not k.endswith("num_batches_tracked"):
+                _close(snap["model"][k], v.numpy(), f"{k} {i}", LRS[i])
 
 
-@pytest.mark.parametrize("i", [0, 1])
-def test_adam_moments_match_jax(run, i):
-    (js, _), _, snap = run[0][i]
-    adam = _adam(js.opt_state)
-    assert int(adam.count) == i + 1
-    for which, tree in ((0, adam.mu), (1, adam.nu)):
-        want = from_jax_variables({**js.model_variables(), "params": tree}, **NB)
-        for name, mom in snap["moments"].items():
-            got = mom[which]
-            if DEAD in name:      # moments of rounding noise
-                assert np.abs(got - want[name].numpy()).max() <= 1e-5 ** (which + 1), name
-            else:
-                _close_to_max(got, want[name].numpy(), f"{name} m{which + 1}")
+def test_adam_moments_match_jax(run):
+    for i in (0, 1):
+        (js, _), _, snap = run[0][i]
+        adam = _adam(js.opt_state)
+        assert int(adam.count) == i + 1
+        for which, tree in ((0, adam.mu), (1, adam.nu)):
+            want = from_jax_variables({**js.model_variables(), "params": tree}, **NB)
+            for name, mom in snap["moments"].items():
+                got = mom[which]
+                if DEAD in name:      # moments of rounding noise
+                    assert (np.abs(got - want[name].numpy()).max()
+                            <= 1e-5 ** (which + 1)), (name, i)
+                else:
+                    _close_to_max(got, want[name].numpy(), f"{name} m{which + 1} {i}")
 
 
-@pytest.mark.parametrize("i", [0, 1])
-def test_discriminator_matches_jax(run, i):
-    (js, _), _, snap = run[0][i]
-    want = discriminator_from_jax_params(js.disc_params)
-    for k, v in want.items():
-        _close(snap["disc"][k], v.numpy(), k)
-    adam = _adam(js.disc_opt_state)
-    for which, tree in ((0, adam.mu), (1, adam.nu)):
-        want = discriminator_from_jax_params(tree)
-        for name, mom in snap["disc_moments"].items():
-            _close_to_max(mom[which], want[name].numpy(), f"disc {name} m{which + 1}")
+def test_discriminator_matches_jax(run):
+    for i in (0, 1):
+        (js, _), _, snap = run[0][i]
+        want = discriminator_from_jax_params(js.disc_params)
+        for k, v in want.items():
+            _close(snap["disc"][k], v.numpy(), f"{k} {i}")
+        adam = _adam(js.disc_opt_state)
+        for which, tree in ((0, adam.mu), (1, adam.nu)):
+            want = discriminator_from_jax_params(tree)
+            for name, mom in snap["disc_moments"].items():
+                _close_to_max(mom[which], want[name].numpy(), f"disc {name} m{which + 1} {i}")
 
 
 def test_eval_metrics_match_jax(run):

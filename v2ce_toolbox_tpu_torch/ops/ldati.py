@@ -29,8 +29,11 @@ non-v3 tail of `sample_events`): relocation and slope on the grid, then
 per frame one stable sort of every (timestamp, voxel) candidate, slot 0
 of every voxel and slots 1 .. mepv-1 of a pool of `max_multi_voxels`
 multi-event voxels (`compact_frame_events`), into a buffer of width
-event_capacity. It launches no kernel; the EventStream route's flatten
-(K5, K2) follows it in the pipeline.
+event_capacity; `sample_events(use_v3=False)` sends every configuration
+there. It launches no kernel; the EventStream route's flatten (K5, K2)
+follows it in the pipeline. Its compaction goes through
+`compact_dispatch`, whose binned route (`compact_frame_events_binned`:
+one packed int32 key a candidate, sorted per bin) a caller may ask for.
 
 Uniform draws come from a provider `draw(j, shape) -> Tensor`: j is the
 JAX `fold_in` index (0 for slot 0, j for tier j) and `shape` the JAX
@@ -61,7 +64,12 @@ import torch.nn.functional as F
 
 from v2ce_toolbox_tpu_torch.config import SamplerConfig
 from v2ce_toolbox_tpu_torch.events import EventStream, to_recarrays
-from v2ce_toolbox_tpu_torch.ops.compact import INVALID, compact_rows, merge_sorted_rows
+from v2ce_toolbox_tpu_torch.ops.compact import (
+    INVALID,
+    _round_up,
+    compact_rows,
+    merge_sorted_rows,
+)
 
 Draw = Callable[[int, Tuple[int, ...]], torch.Tensor]
 
@@ -94,9 +102,13 @@ def fma32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     return torch.where(e != 0, torch.nextafter(s, towards), s).float()
 
 
+def _bits(n: int) -> int:
+    return max(int(np.ceil(np.log2(n))), 1)
+
+
 def vox_bits_of(p: int, h: int, w: int) -> int:
     """Bit width of the within-bin voxel id in the packed key."""
-    return max(int(np.ceil(np.log2(max(p * h * w, 2)))), 1)
+    return _bits(max(p * h * w, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -263,11 +275,13 @@ def _b_of_k(k: torch.Tensor, voxel_step: float) -> torch.Tensor:
 
 def supports_rows(p: int, h: int, w: int, *, fps: int, c: int = 10,
                   additional_events_strategy: str = "slope",
-                  pooling_type: str = "none") -> bool:
-    """Whether the packed key holds the chain µs and the voxel ids: the
-    take_v3 gate of the JAX `sample_events` (`ldati.py:1210`)."""
+                  pooling_type: str = "none", use_v3: bool = True) -> bool:
+    """Whether the v3 core runs: asked for (use_v3) and the packed key holds
+    the chain µs and the voxel ids; the take_v3 gate of the JAX
+    `sample_events` (`ldati.py:1210`)."""
     max_rel_us = int(1.0 / fps / (c - 1) * 1e6) + 2
-    return (additional_events_strategy in STRATEGIES and pooling_type in POOLINGS
+    return (use_v3 and additional_events_strategy in STRATEGIES
+            and pooling_type in POOLINGS
             and max_rel_us <= (1 << (31 - vox_bits_of(p, h, w))) - 2)
 
 
@@ -410,14 +424,147 @@ def compact_frame_events(emit_count: torch.Tensor, ts_fn, draw: Draw, *,
     return sorted_keys[:, :capacity], sorted_ids, count, dropped
 
 
-def _compact_one_frame(emit_count, chain_ts_us, is_chain, k, b, bin_start_s, draw: Draw, *,
-                       strategy: str, voxel_step: float, max_events_per_voxel: int,
-                       max_multi_voxels: int, capacity: int):
+def compact_dispatch(emit_count: torch.Tensor, ts_fn, draw: Draw, *, bin_start_us: torch.Tensor,
+                     cb: int, seg: int, max_rel_us: int, max_events_per_voxel: int,
+                     max_multi_voxels: int, capacity: int,
+                     use_binned_compaction: bool = False):
+    """The v2 compaction of B frames (`ldati.py:320`): the binned route
+    (`compact_frame_events_binned`) when asked for and the sub-bin µs
+    (max_rel_us) and the within-bin voxel ids (seg) fit one int32 key,
+    else the flat sort (`compact_frame_events`). The binned route's pool a
+    bin is max_multi_voxels / cb, clamped to [128, 8192]."""
+    ts_bits = _bits(max_rel_us + 3)
+    if use_binned_compaction and ts_bits + _bits(max(seg, 2)) <= 31:
+        return compact_frame_events_binned(
+            emit_count, ts_fn, bin_start_us, draw, cb=cb, seg=seg, ts_bits=ts_bits,
+            max_events_per_voxel=max_events_per_voxel, capacity=capacity,
+            pool_bin=min(max(max_multi_voxels // cb, 128), 8192))
+    return compact_frame_events(emit_count, ts_fn, draw,
+                                max_events_per_voxel=max_events_per_voxel,
+                                max_multi_voxels=max_multi_voxels, capacity=capacity)
+
+
+def _searchsorted_right(offsets: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Row r: the last i with offsets[r, i] <= q[r, :] (0 below the first),
+    int32; offsets non-decreasing along each row."""
+    r = torch.searchsorted(offsets.contiguous(), q.contiguous(), right=True, out_int32=True)
+    return torch.clamp(r - 1, min=0)
+
+
+def compact_frame_events_binned(emit_count: torch.Tensor, ts_fn, bin_start_us: torch.Tensor,
+                                draw: Draw, *, cb: int, seg: int, ts_bits: int,
+                                max_events_per_voxel: int, capacity: int, tile: int = 2048,
+                                cap_bin: Optional[int] = None, pool_bin: Optional[int] = None):
+    """The v2 compaction with one packed int32 key a candidate, sorted per
+    bin (`ldati.py:371`), for B frames of bin-major (B, cb*seg) emit counts.
+
+    The key is (µs past the bin start, clipped to ts_bits) << vox_bits | the
+    voxel's id within its bin. (1) The slot-0 keys of each bin are sorted
+    in tiles of `tile`; (2) the tiles' valid prefixes are gathered into a
+    (cb, cap_bin) buffer; (3) the slot-0 events of voxels that emit two or
+    more are sorted to the front of the bin, and the first pool_bin of them
+    give slots 1 .. mepv-1; (4) each bin's slot-0 and extra keys are sorted
+    and (5) the bins' valid prefixes gathered into capacity slots: the bins
+    are time-ordered, so the stream is too. The only equal keys are INVALID
+    or the same (µs, voxel) twice, so no sort needs to be stable.
+
+    Draws: draw(0, (B, cb*seg)) over every voxel, draw(j, (B, cb*pool_bin))
+    for slot j over the pool, bin-major. `ts_fn` and the returns are those
+    of `compact_frame_events`; bin_start_us (cb,) int32 decodes the keys.
+    Events past cap_bin, the pool or capacity are counted in dropped.
+
+    Needs ts_bits + bits(seg) <= 31; `compact_dispatch` gates on it. The
+    gate is the v3 core's within one (the v3 key's voxel id spans both
+    polarities of a bin, as seg does here): at 260x346 (seg 179,920, 18
+    bits) 30 fps passes (12 + 18) and 10 fps fails (14 + 18). So the route
+    never serves a geometry the v2 core takes by the v3 gate: it serves
+    `sample_events(use_v3=False)` and the ablation samplers, when asked
+    for."""
+    bb = emit_count.shape[0]
+    dev = emit_count.device
+    i32 = torch.int32
+    vox_bits = _bits(max(seg, 2))
+    if ts_bits + vox_bits > 31:
+        raise ValueError(f"ts_bits {ts_bits} + vox_bits {vox_bits} exceed the 31-bit key")
+    vox_mask = (1 << vox_bits) - 1
+    ts_cap = (1 << ts_bits) - 2
+    if cap_bin is None:
+        cap_bin = min(_round_up(max(capacity // cb, 1024), 128), _round_up(seg, tile))
+    pool_bin = min(4096 if pool_bin is None else pool_bin, cap_bin)
+    n_tiles = -(-seg // tile)
+    seg_pad = n_tiles * tile
+    starts = bin_start_us.view(1, cb, 1)
+    bin_base = torch.arange(cb, dtype=i32, device=dev).view(1, cb, 1) * seg
+
+    def rel_us(abs_ts_us):
+        return torch.clamp(abs_ts_us.reshape(bb, cb, -1) - starts, 0, ts_cap)
+
+    # 1. slot-0 keys, sorted in tiles
+    u0 = draw(0, (bb, cb * seg))
+    keys0 = torch.where(emit_count.reshape(bb, cb, seg) > 0,
+                        (rel_us(ts_fn(0, u0, None)) << vox_bits)
+                        | torch.arange(seg, dtype=i32, device=dev), INVALID)
+    keys0 = F.pad(keys0, (0, seg_pad - seg), value=INVALID)
+    tiles = torch.sort(keys0.reshape(-1, tile), dim=1).values.reshape(bb * cb, seg_pad)
+
+    # 2. the tiles' valid prefixes gathered into (cb, cap_bin) a frame
+    tile_counts = (tiles.reshape(bb * cb, n_tiles, tile) != INVALID).sum(dim=2, dtype=i32)
+    bin_total = tile_counts.sum(dim=1, dtype=i32)
+    tile_off = torch.cumsum(tile_counts, dim=1, dtype=i32) - tile_counts
+    q = torch.arange(cap_bin, dtype=i32, device=dev).expand(bb * cb, cap_bin)
+    r = _searchsorted_right(tile_off, q)
+    flat_idx = torch.clamp(r * tile + q - _gather(tile_off, r), 0, seg_pad - 1)
+    compacted = torch.where(q < bin_total[:, None], _gather(tiles, flat_idx), INVALID)
+    compacted = compacted.reshape(bb, cb, cap_bin)
+    emitted = torch.clamp(bin_total, max=cap_bin).reshape(bb, cb).sum(dim=1, dtype=i32)
+
+    rows = [compacted]
+    if max_events_per_voxel > 1:
+        def emit_of(keys):
+            vox = torch.clamp((keys & vox_mask) + bin_base, 0, cb * seg - 1)
+            em = _gather(emit_count, vox.reshape(bb, -1)).reshape(keys.shape)
+            return vox, torch.where(keys != INVALID, em, 0)
+
+        # 3. the multi-event pool: a sort keeps the slot-0 time order
+        _, slot_emit = emit_of(compacted)
+        pool = torch.sort(torch.where(slot_emit >= 2, compacted, INVALID),
+                          dim=2).values[:, :, :pool_bin]
+        pool_vox, pool_emit = emit_of(pool)
+        pool_local = pool & vox_mask
+        for j in range(1, max_events_per_voxel):
+            u = draw(j, (bb, cb * pool_bin))
+            live = pool_emit > j
+            rel = rel_us(ts_fn(j, u, pool_vox.reshape(bb, -1)))
+            rows.append(torch.where(live, (rel << vox_bits) | pool_local, INVALID))
+            emitted = emitted + live.sum(dim=(1, 2), dtype=i32)
+
+    # 4. one sort a bin; 5. the bins' valid prefixes into capacity slots
+    rows = torch.sort(torch.cat(rows, dim=2), dim=2).values
+    row_len = rows.shape[2]
+    row_counts = (rows != INVALID).sum(dim=2, dtype=i32)
+    off = torch.cumsum(row_counts, dim=1, dtype=i32) - row_counts
+    qq = torch.arange(capacity, dtype=i32, device=dev).expand(bb, capacity)
+    rb = _searchsorted_right(off, qq)
+    flat = torch.clamp(rb * row_len + qq - _gather(off, rb), 0, cb * row_len - 1)
+    out = _gather(rows.reshape(bb, -1), flat)
+    count = torch.clamp(emitted, max=capacity)
+    valid = qq < count[:, None]
+    t_us = torch.where(valid, (out >> vox_bits) + bin_start_us[rb.long()], INVALID)
+    vox_id = torch.where(valid, (out & vox_mask) + rb * seg, 0)
+    dropped = emit_count.sum(dim=1, dtype=i32) - count
+    return t_us, vox_id, count, dropped
+
+
+def _compact_one_frame(emit_count, chain_ts_us, is_chain, k, b, bin_start_s, bin_start_us,
+                       draw: Draw, *, strategy: str, voxel_step: float, cb: int, seg: int,
+                       max_events_per_voxel: int, max_multi_voxels: int, capacity: int):
     """LDATI's slot -> timestamp rule on the v2 compaction (`ldati.py:521`),
     for B frames of (B, V) per-voxel data: slot 0 is the chain timestamp of
     a count-1 voxel and a draw otherwise, slots >= 1 are draws; 'slope'
     draws from the linear density, 'random' keeps raw U[0, 1) seconds past
-    the bin start, 'none' emits the chain timestamps alone."""
+    the bin start, 'none' emits the chain timestamps alone. Through
+    `compact_dispatch` with the flat route, as in the JAX package; 'random'
+    spans the whole frame, too wide for the binned route's key."""
     dev = emit_count.device
     us = f32(1e6, dev)
 
@@ -434,8 +581,10 @@ def _compact_one_frame(emit_count, chain_ts_us, is_chain, k, b, bin_start_s, dra
         return additional_us(u, _gather(k, vox_idx), _gather(b, vox_idx),
                              _gather(bin_start_s, vox_idx))
 
-    return compact_frame_events(
-        emit_count, ts_fn, draw,
+    max_rel_us = int(1e6) if strategy == "random" else int(voxel_step * 1e6) + 2
+    return compact_dispatch(
+        emit_count, ts_fn, draw, bin_start_us=bin_start_us, cb=cb, seg=seg,
+        max_rel_us=max_rel_us,
         max_events_per_voxel=1 if strategy == "none" else max_events_per_voxel,
         max_multi_voxels=max_multi_voxels, capacity=capacity)
 
@@ -457,7 +606,9 @@ def _sample_events_v2(voxels: torch.Tensor, draw: Draw, cfg: SamplerConfig, *, t
 
     counts, tendency = relocate_counts(voxels.float().reshape(n, c, h, w),
                                        bidirectional=cfg.bidirectional)
-    bs = torch.from_numpy(bin_constants(cb, fps, t0)[0]).to(dev).view(1, cb, 1, 1)
+    bs_np, bs_us_np = bin_constants(cb, fps, t0)
+    bs = torch.from_numpy(bs_np).to(dev).view(1, cb, 1, 1)
+    bs_us = torch.from_numpy(bs_us_np).to(dev)
     if strategy == "none" and t0 == 0:
         # XLA:CPU contracts the other product of `tend * scale + bin * vs`
         # when nothing else reads the bin starts
@@ -485,8 +636,8 @@ def _sample_events_v2(voxels: torch.Tensor, draw: Draw, cfg: SamplerConfig, *, t
 
     t_us, vox_id, count, dropped = _compact_one_frame(
         fo(emit), fo(chain_ts_us), fo(is_chain), fo(k), fo(b),
-        fo(bs.expand(n, cb, h, w)), draw, strategy=strategy, voxel_step=voxel_step,
-        max_events_per_voxel=mepv if strategy != "none" else 1,
+        fo(bs.expand(n, cb, h, w)), bs_us, draw, strategy=strategy, voxel_step=voxel_step,
+        cb=cb, seg=p * h * w, max_events_per_voxel=mepv if strategy != "none" else 1,
         max_multi_voxels=max_multi_voxels, capacity=cfg.event_capacity)
     return decode_event_stream(t_us, vox_id, count,
                                dropped + fo(cap_dropped).sum(dim=1, dtype=torch.int32),
@@ -585,7 +736,7 @@ def _grid_candidates(voxels: torch.Tensor, draw: Draw, cfg: SamplerConfig, t0: f
 
 def sample_events(voxels: torch.Tensor, draw: Draw, cfg: SamplerConfig, *,
                   t0: float = 0.0, return_rows: bool = False,
-                  max_multi_voxels: int = 1 << 16):
+                  max_multi_voxels: int = 1 << 16, use_v3: bool = True):
     """Sample a timestamped event stream from predicted voxels.
 
     Args:
@@ -598,6 +749,7 @@ def sample_events(voxels: torch.Tensor, draw: Draw, cfg: SamplerConfig, *,
         The v2 core runs where the packed key cannot hold the voxel ids
         (`supports_rows`): per-frame buffers of width event_capacity
         sorted by timestamp over the whole frame.
+      use_v3: False sends every configuration to the v2 core.
     Returns:
       With return_rows: rel (B*9, W) int32 µs within the row's bin, sorted
       ('random': in draw order of rel), INVALID tail; gvox (B*9, W) int32
@@ -613,7 +765,7 @@ def sample_events(voxels: torch.Tensor, draw: Draw, cfg: SamplerConfig, *,
     check_config(cfg, p, c, h, w)
     if not supports_rows(p, h, w, fps=cfg.fps, c=c,
                          additional_events_strategy=cfg.additional_events_strategy,
-                         pooling_type=cfg.pooling_type):
+                         pooling_type=cfg.pooling_type, use_v3=use_v3):
         if return_rows:
             raise ValueError("return_rows needs the v3 sampler core: the packed key must "
                              "hold the voxel ids (supports_rows)")

@@ -2,7 +2,7 @@
 
 Port of `v2ce_toolbox_tpu/ops/samplers.py` (the reference's
 random_even_sample.py and pure_slope_sample.py), on the v2 core's
-compaction (`ops/ldati.compact_frame_events`). Unlike LDATI they do not
+compaction (`ops/ldati.compact_dispatch`). Unlike LDATI they do not
 relocate: each of the 10 bins keeps its value, floor(y) events are
 emitted and the fraction gives one more with that probability.
 
@@ -32,7 +32,7 @@ from v2ce_toolbox_tpu_torch.events import EventStream, to_recarrays
 from v2ce_toolbox_tpu_torch.ops.ldati import (
     Draw,
     _gather,
-    compact_frame_events,
+    compact_dispatch,
     decode_event_stream,
     f32,
     fma32,
@@ -60,6 +60,16 @@ def _bernoulli_emit(y: torch.Tensor, draw: Draw):
     return n_int, n_int + bern
 
 
+def _bin_starts(c: int, delta: float, t0: Optional[float], dev) -> torch.Tensor:
+    """The (c,) f32 bin starts bin * delta + t0: with t0 left out (a
+    constant 0) a product, else fma(bin, delta, t0), as XLA:CPU evaluates
+    them (see `_bin_adder`)."""
+    iota = torch.arange(c, dtype=torch.float32, device=dev)
+    if t0 is None:
+        return iota * f32(delta, dev)
+    return fma32(iota, np.float32(delta), f32(t0, dev).expand(c))
+
+
 def _bin_adder(fo, shape, delta: float, t0: Optional[float], dev):
     """add_bin(sub, vox_idx, q): sub plus the voxel's bin start, where q, if
     given, is the factor of sub = q * delta whose product XLA:CPU contracts
@@ -73,10 +83,7 @@ def _bin_adder(fo, shape, delta: float, t0: Optional[float], dev):
     c = shape[1]
     d = np.float32(delta)
     iota = torch.arange(c, dtype=torch.float32, device=dev)
-    if t0 is None:
-        bins = iota * f32(d, dev)
-    else:
-        bins = fma32(iota, d, f32(t0, dev).expand(c))
+    bins = _bin_starts(c, delta, t0, dev)
     bins_f = fo(bins.view(1, c, 1, 1).expand(shape))
     iota_f = fo(iota.view(1, c, 1, 1).expand(shape))
 
@@ -90,12 +97,16 @@ def _bin_adder(fo, shape, delta: float, t0: Optional[float], dev):
 
 
 def _compact(emit: torch.Tensor, ts_fn, draw: Draw, *, bb: int, p: int, c: int, h: int,
-             w: int, max_events_per_voxel: int, max_multi_voxels: int,
-             capacity: int) -> EventStream:
-    """Every frame through the v2 compaction, decoded, with the events over
+             w: int, delta: float, t0: Optional[float], max_events_per_voxel: int,
+             max_multi_voxels: int, capacity: int) -> EventStream:
+    """Every frame through the v2 compaction (`compact_dispatch`, the flat
+    route, as in the JAX package), decoded, with the events over
     max_events_per_voxel added to dropped."""
-    t_us, vox_id, count, dropped = compact_frame_events(
+    dev = emit.device
+    t_us, vox_id, count, dropped = compact_dispatch(
         frame_order_voxels(emit, bb, p, c, h, w), ts_fn, draw,
+        bin_start_us=(_bin_starts(c, delta, t0, dev) * f32(1e6, dev)).to(torch.int32),
+        cb=c, seg=p * h * w, max_rel_us=int(delta * 1e6) + 2,
         max_events_per_voxel=max_events_per_voxel, max_multi_voxels=max_multi_voxels,
         capacity=capacity)
     cap_drop = frame_order_voxels(torch.clamp(emit - max_events_per_voxel, min=0),
@@ -136,7 +147,7 @@ def sample_events_baseline(voxels: torch.Tensor, draw: Draw, *, t0: Optional[flo
             ts = add_bin(q * d, vox_idx, None if vox_idx is None else q)
         return (ts * f32(1e6, dev)).to(torch.int32)
 
-    return _compact(emit, ts_fn, draw, bb=bb, p=p, c=c, h=h, w=w,
+    return _compact(emit, ts_fn, draw, bb=bb, p=p, c=c, h=h, w=w, delta=delta, t0=t0,
                     max_events_per_voxel=max_events_per_voxel,
                     max_multi_voxels=max_multi_voxels, capacity=capacity)
 
@@ -174,7 +185,7 @@ def sample_events_pure_slope(voxels: torch.Tensor, draw: Draw, *,
         sub = inverse_cdf_ts(u, kk, bk, delta, fuse_square=True)
         return (add_bin(sub, vox_idx) * f32(1e6, dev)).to(torch.int32)
 
-    return _compact(emit, ts_fn, draw, bb=bb, p=p, c=c, h=h, w=w,
+    return _compact(emit, ts_fn, draw, bb=bb, p=p, c=c, h=h, w=w, delta=delta, t0=t0,
                     max_events_per_voxel=max_events_per_voxel,
                     max_multi_voxels=max_multi_voxels, capacity=capacity)
 

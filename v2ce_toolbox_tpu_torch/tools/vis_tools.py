@@ -1,7 +1,10 @@
-"""Preview images of `train.main` (`--dump_previews`).
+"""Preview images of `train.main` (`--dump_previews`) and the event plots
+of `tools/vis_stage2`.
 
 `event_frame_rgb` is `tools/vis_tools.py`'s numpy function; `batch_show`
-draws the same grid of titled panels with cv2 in place of matplotlib.
+draws the same grid of titled panels with cv2 in place of matplotlib;
+`plot_raw_events_xyt` is its matplotlib x-y-t scatter (`vis_tools.py:71`),
+which needs matplotlib.
 """
 
 from __future__ import annotations
@@ -63,3 +66,31 @@ def batch_show(images: Sequence[np.ndarray], cols: int = 4,
         if not cv2.imwrite(save_path, cv2.cvtColor(grid, cv2.COLOR_RGB2BGR)):
             raise OSError(f"cv2 could not write {save_path}")
     return grid
+
+
+def plot_raw_events_xyt(events: np.ndarray, max_events: int = 50000,
+                        save_path: Optional[str] = None):
+    """x-y-t scatter of a raw event stream, ON red, OFF blue, of at most
+    max_events (a seeded subset, kept in time order); written to
+    save_path, or the figure returned."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    if len(events) > max_events:
+        sel = np.random.RandomState(0).choice(len(events), max_events, replace=False)
+        events = events[np.sort(sel)]
+    fig = plt.figure(figsize=(9, 6))
+    ax = fig.add_subplot(projection="3d")
+    colors = np.where(events["polarity"] > 0, "r", "b")
+    ax.scatter(events["timestamp"], events["x"], events["y"], c=colors, s=1, alpha=0.4)
+    ax.set_xlabel("t (µs)")
+    ax.set_ylabel("x")
+    ax.set_zlabel("y")
+    ax.invert_zaxis()
+    if save_path:
+        fig.savefig(save_path, dpi=120)
+        plt.close(fig)
+        return save_path
+    return fig
