@@ -215,7 +215,7 @@ Phases, any failure exits non-zero before the result lines:
      through `perf_probe.main` with N_PROBE17_ITERS timed runs a call,
      counted: every kernel the probe names (its `KERNELS`) must launch, no
      line may print FAILED, every number it returns must be finite (None
-     only where it prints "not ported" or "not applicable"), and K9's
+     only where it prints "not applicable"), and K9's
      `pallas_conv` rel_err (from the f64 sum of the same values) within
      CONV_REL_TOL (TF32 off); each probe's seconds go into the kernels
      line's `probe_seconds`. Then torch.profiler over one fused stage-2
@@ -239,6 +239,24 @@ Phases, any failure exits non-zero before the result lines:
      counts, then its `main` (PNGs, or where matplotlib is missing exactly
      a SystemExit naming it). The numbers go into the kernels line's
      `stage_tools`.
+ 19. the stage-1 rewrites (`rewrites_phase`), counted: (a) the full-width
+     V2ce3d on one 16-frame 260x346 window in every variant of
+     REWRITE_VARIANTS (decoder_split, out_layout 'cm', conv_impl 'fold',
+     'd2', 'd2s', 'wpack', the sub-pixel decoder's 'split', 'wfold' and
+     'pfold' forms on all or the last decoders, K10 on the last two)
+     within STAGE1_REL_TOL of the base model with the same weights, ms a
+     window (median of 3), and in bf16 the pfold decoder alone and with
+     K9 on every 3x3x3 conv within phase 10's max-error gate of the f32
+     base; K10 and K9 must launch where named; (b) one train step at
+     TRAIN_CMP_SHAPE with remat against one without, within phase 14's
+     limits, a step of REWRITE_TRAIN with finite gradients within
+     TRAIN_GRAD_REL_TOL of the base step's, and each remat setting's peak
+     GiB and ms of a warm step at train.main's 4x16x260x346; (c)
+     V2cePipeline center on phase 4's clip with
+     `ModelConfig(subpixel_decoder=True)` and with the base model: sorted
+     EVENT_DTYPE records, event counts within 0.5% of each other,
+     frames/s; (d) the nine probes of the rewrites (PROBES19) as phase 17
+     runs its own. The numbers go into the kernels line's `rewrites`.
 The line before the last is a JSON object of per-kernel results (its
 `launches` is the count of the kernel's own path, KERNEL_PATH, and
 `launches_by_path` every counted path's count; K9's and K10's times are
@@ -332,12 +350,13 @@ TRAIN_DEAD_BIAS = "downsample.0.bias"
 # world's wall limit and collective timeout (s)
 DP_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, H, W)
 DP_WALL_S, DP_COLLECTIVE_S = 400, 120
+# (b)'s train steps on each rank: result key -> remat
+DP_STEPS = {"train": False, "train_remat": True}
 # phase 17, the stage-1 and stage-2 probes: timed runs a call, and the
-# results a probe may leave None (the JAX options the port does not carry,
-# which print "not ported" or "not applicable")
+# results a probe may leave None (the JAX option the port does not carry,
+# which prints "not applicable")
 N_PROBE17_ITERS = 5
-PROBE17_NOT_PORTED = {"fused_dec": {("dec3", "fused-k64")},
-                      "model_overhead": {"model[ko:all,no_sn,no_bn]"}}
+PROBE17_NOT_PORTED = {"fused_dec": {("dec3", "fused-k64")}}
 # phase 18, the stage tools: the frames of the v2 core's call whose
 # compaction runs both routes, and the timed runs of each
 PT18_FRAMES, N_PT18_TIMED = 24, 7
@@ -346,6 +365,34 @@ PT18_FRAMES, N_PT18_TIMED = 24, 7
 PT18_KERNELS = {"slope": ("gen_compact", "compact_rows", "merge_sorted_rows"),
                 "none": ("gen_compact", "merge_sorted_rows"),
                 "random": ("compact_rows", "merge_sorted_rows")}
+# phase 19, the stage-1 rewrites: the variants held against the base model
+# at full width on one window (`tests/test_model_rewrites.py`'s list, plus
+# 'd2s' and 'wpack'), the bf16 ones through phase 10's max-error gate, the
+# train step's mixed variant (decoder_split on the first two decoders,
+# pfold on the last two, 'fold' on the strided convs), and the nine probes
+# of the rewrites
+REWRITE_VARIANTS = {
+    "split": dict(decoder_split=True),
+    "cm": dict(out_layout="cm"),
+    "fold": dict(conv_impl="fold"),
+    "d2": dict(conv_impl="d2"),
+    "all": dict(decoder_split=True, out_layout="cm", conv_impl="fold"),
+    "sp-split": dict(subpixel_decoder=True, subpixel_impl="split"),
+    "sp-wfold": dict(subpixel_decoder=True, subpixel_impl="wfold"),
+    "sp-pfold": dict(subpixel_decoder=True, subpixel_impl="pfold"),
+    "sp-pfold-last1": dict(subpixel_decoder=True, subpixel_impl="pfold", subpixel_blocks=1),
+    "sp-wfold-last2": dict(subpixel_decoder=True, subpixel_impl="wfold", subpixel_blocks=2),
+    "sp-pallas-last2": dict(subpixel_decoder=True, subpixel_impl="pallas", subpixel_blocks=2),
+    "d2s": dict(conv_impl="d2s"),
+    "wpack": dict(conv_impl="wpack"),
+}
+REWRITE_BF16 = {"sp-pfold": (dict(subpixel_decoder=True), ()),
+                "pallas + sp-pfold": (dict(conv_impl="pallas", subpixel_decoder=True),
+                                      ("conv3d_3x3x3",))}
+REWRITE_TRAIN = dict(decoder_split=True, conv_impl="fold", subpixel_decoder=True,
+                     subpixel_blocks=2)
+PROBES19 = ("wpack", "conv2d_decomp", "d2", "model_d2", "model_knockout", "boundary",
+            "model_variants", "subpixel_variants", "winograd")
 # phase 15, the remaining models and utilities: the V2ce2d and UNetPlain3D
 # windows (frames; the card-vs-CPU comparisons run at CMP_HW, the full
 # 260x346 forwards on the card alone), the ResNetDiscriminator's batch (one
@@ -2093,28 +2140,24 @@ def _probe_numbers(res, key=()):
             yield key + (k,), v
 
 
-def probes_phase(torch, np, counted, smi):
-    """Phase 17: the 24 stage-1 and stage-2 probes of the probe harness
-    (`probes_stage1`, `probes_stage2`), each once at its JAX shapes through
-    `perf_probe.main`, counted: every kernel the probe names must launch;
-    no line may print FAILED; every number it returns must be finite (None
-    only where the probe prints "not ported" or "not applicable"); K9's
-    rel_err in `pallas_conv` (from the conv of the same values summed in
-    f64, relative to its largest output, as phase 12 holds K12's f32 route)
-    within CONV_REL_TOL of its output dtype (f32 in both input dtypes; TF32
-    off). Returns ({probe: result}, {probe: seconds})."""
+def _run_probes(torch, np, counted, names):
+    """Each probe of `names` once at its JAX shapes through
+    `perf_probe.main`, counted: the kernels its module's KERNELS names must
+    launch; no line may print FAILED; every number it returns must be
+    finite (None only where PROBE17_NOT_PORTED allows it). Returns
+    ({probe: result}, {probe: seconds})."""
     from v2ce_toolbox_tpu_torch.tools import perf_probe, probes_stage1, probes_stage2
 
     kernels = {**probes_stage2.KERNELS, **probes_stage1.KERNELS}
     results, seconds = {}, {}
     iters, perf_probe.N_ITERS = perf_probe.N_ITERS, N_PROBE17_ITERS
-    t_phase = time.time()
     try:
-        for name, want in kernels.items():
+        for name in names:
             tee = Tee(sys.stdout)
             t0 = time.time()
             with contextlib.redirect_stdout(tee):
-                out = counted(f"probe {name}", want, lambda name=name: perf_probe.main([name]),
+                out = counted(f"probe {name}", kernels[name],
+                              lambda name=name: perf_probe.main([name]),
                               f"python -m v2ce_toolbox_tpu_torch.tools.perf_probe {name}")
             seconds[name] = time.time() - t0
             torch.cuda.empty_cache()
@@ -2130,6 +2173,25 @@ def probes_phase(torch, np, counted, smi):
                 raise AssertionError(f"probe {name} returned non-finite numbers: {bad}")
     finally:
         perf_probe.N_ITERS = iters
+    return results, seconds
+
+
+def probes_phase(torch, np, counted, smi):
+    """Phase 17: the 24 stage-1 and stage-2 probes of the probe harness
+    (`probes_stage1`, `probes_stage2`), each once at its JAX shapes through
+    `perf_probe.main`, counted: every kernel the probe names must launch;
+    no line may print FAILED; every number it returns must be finite (None
+    only where the probe prints "not applicable"); K9's
+    rel_err in `pallas_conv` (from the conv of the same values summed in
+    f64, relative to its largest output, as phase 12 holds K12's f32 route)
+    within CONV_REL_TOL of its output dtype (f32 in both input dtypes; TF32
+    off). Returns ({probe: result}, {probe: seconds})."""
+    from v2ce_toolbox_tpu_torch.tools import probes_stage1, probes_stage2
+
+    t_phase = time.time()
+    results, seconds = _run_probes(torch, np, counted, [
+        name for name in {**probes_stage2.KERNELS, **probes_stage1.KERNELS}
+        if name not in PROBES19])
     tol = CONV_REL_TOL["float32"]                 # K9's output is f32 in both dtypes
     rel = {f"{shape} {dt}": r["rel_err"] for (shape, dt), r in results["pallas_conv"].items()}
     log("[probes] pallas_conv K9 rel_err from the conv of the same values summed in f64: "
@@ -2197,36 +2259,9 @@ def train_step_phase(torch, np, dev, smi):
         runs[str(where)] = (st, {k: float(v) for k, v in logs.items()},
                             time.perf_counter() - t0)
     (cs, clogs, cpu_s), (gs, glogs, card_s) = runs["cpu"], runs[str(dev)]
-    errs = {"logs": max(abs(glogs[k] - v) / max(abs(v), 1e-30) for k, v in clogs.items())}
-    csd, gsd = cs.model.state_dict(), gs.model.state_dict()
-    for k, v in csd.items():
-        if "running_" in k or k.endswith(("weight_u", "weight_v")):
-            group = "BN statistics" if "running_" in k else "SN vectors"
-            errs[group] = max(errs.get(group, 0.0), _train_rel(gsd[k], v))
-    # parameters, in units of each net's lr times its updates, and the
-    # generator's share of elements moved differently by more than 1e-3 lr
-    disc_lr = cs.disc_opt.param_groups[0]["lr"]
-    moved = apart = 0
-    for net, c, g, reach in (("generator", cs.model, gs.model, cfg.lr),
-                             ("discriminator", cs.disc, gs.disc, args.gan_k * disc_lr)):
-        for (name, cp), gp in zip(c.named_parameters(), g.parameters()):
-            d = (gp.detach().cpu() - cp.detach()).abs()
-            errs[f"{net} params / (2 lr)"] = max(errs.get(f"{net} params / (2 lr)", 0.0),
-                                                 float(d.max()) / (2 * reach))
-            if net == "generator" and cp.requires_grad:
-                apart += int((d > 1e-3 * cfg.lr).sum())
-                moved += d.numel()
-            if cp.requires_grad and TRAIN_DEAD_BIAS not in name:
-                opt_c, opt_g = (cs.opt, gs.opt) if net == "generator" else (cs.disc_opt,
-                                                                            gs.disc_opt)
-                errs[f"{net} Adam m1"] = max(errs.get(f"{net} Adam m1", 0.0),
-                                             _train_rel(opt_g.state[gp]["exp_avg"],
-                                                        opt_c.state[cp]["exp_avg"]))
+    errs, apart, moved = _step_errors(cs, clogs, gs, glogs, cfg, args.gan_k)
     share = apart / moved
-    limits = {"logs": TRAIN_LOG_REL_TOL, "BN statistics": TRAIN_STATE_REL_TOL,
-              "SN vectors": TRAIN_STATE_REL_TOL, "generator Adam m1": TRAIN_GRAD_REL_TOL,
-              "discriminator Adam m1": TRAIN_GRAD_REL_TOL,
-              "generator params / (2 lr)": 1 + 1e-3, "discriminator params / (2 lr)": 1 + 1e-3}
+    limits = TRAIN_LIMITS
     log(f"[train] one step, card vs CPU, full-width V2ce3d + PatchDiscriminator2D, batch "
         f"{TRAIN_CMP_SHAPE}, loss {cfg.loss}, gan_k {args.gan_k}: "
         + ", ".join(f"{k} {v:.3e} (limit {limits[k]:g})" for k, v in errs.items())
@@ -2239,6 +2274,45 @@ def train_step_phase(torch, np, dev, smi):
         raise AssertionError(f"the card's train step disagrees with the CPU's: {bad}, "
                              f"share {share}")
     return errs
+
+
+# phase 14's limits on one train step against another, by group
+TRAIN_LIMITS = {"logs": TRAIN_LOG_REL_TOL, "BN statistics": TRAIN_STATE_REL_TOL,
+                "SN vectors": TRAIN_STATE_REL_TOL, "generator Adam m1": TRAIN_GRAD_REL_TOL,
+                "discriminator Adam m1": TRAIN_GRAD_REL_TOL,
+                "generator params / (2 lr)": 1 + 1e-3, "discriminator params / (2 lr)": 1 + 1e-3}
+
+
+def _step_errors(cs, clogs, gs, glogs, cfg, gan_k):
+    """Train state gs after one step against cs (the reference), in phase
+    14's groups (TRAIN_LIMITS): the largest error of each group, and the
+    generator's elements moved apart by more than 1e-3 lr, of all moved."""
+    errs = {"logs": max(abs(glogs[k] - v) / max(abs(v), 1e-30) for k, v in clogs.items())}
+    csd, gsd = cs.model.state_dict(), gs.model.state_dict()
+    for k, v in csd.items():
+        if "running_" in k or k.endswith(("weight_u", "weight_v")):
+            group = "BN statistics" if "running_" in k else "SN vectors"
+            errs[group] = max(errs.get(group, 0.0), _train_rel(gsd[k], v))
+    # parameters, in units of each net's lr times its updates, and the
+    # generator's share of elements moved differently by more than 1e-3 lr
+    disc_lr = cs.disc_opt.param_groups[0]["lr"]
+    moved = apart = 0
+    for net, c, g, reach in (("generator", cs.model, gs.model, cfg.lr),
+                             ("discriminator", cs.disc, gs.disc, gan_k * disc_lr)):
+        for (name, cp), gp in zip(c.named_parameters(), g.parameters()):
+            d = (gp.detach().cpu() - cp.detach().cpu()).abs()
+            errs[f"{net} params / (2 lr)"] = max(errs.get(f"{net} params / (2 lr)", 0.0),
+                                                 float(d.max()) / (2 * reach))
+            if net == "generator" and cp.requires_grad:
+                apart += int((d > 1e-3 * cfg.lr).sum())
+                moved += d.numel()
+            if cp.requires_grad and TRAIN_DEAD_BIAS not in name:
+                opt_c, opt_g = (cs.opt, gs.opt) if net == "generator" else (cs.disc_opt,
+                                                                            gs.disc_opt)
+                errs[f"{net} Adam m1"] = max(errs.get(f"{net} Adam m1", 0.0),
+                                             _train_rel(opt_g.state[gp]["exp_avg"],
+                                                        opt_c.state[cp]["exp_avg"]))
+    return errs, apart, moved
 
 
 def train_run_phase(torch, np, counted, smi):
@@ -2690,10 +2764,10 @@ DP_LIMITS = {"logs": TRAIN_LOG_REL_TOL, "BN statistics": TRAIN_STATE_REL_TOL,
              "generator share apart": TRAIN_PARAM_SHARE}
 
 
-def _dp_train_setup(torch, np, shape):
-    """train.main's defaults: the full-width V2ce3d, PatchDiscriminator2D,
-    the default loss stack and gan_k, and a seeded global batch of `shape`
-    (B, L, H, W) on the host."""
+def _dp_train_setup(torch, np, shape, remat=False):
+    """train.main's defaults: the full-width V2ce3d (with `remat`),
+    PatchDiscriminator2D, the default loss stack and gan_k, and a seeded
+    global batch of `shape` (B, L, H, W) on the host."""
     from v2ce_toolbox_tpu_torch.config import ModelConfig, TrainConfig
     from v2ce_toolbox_tpu_torch.models import V2ce3d
     from v2ce_toolbox_tpu_torch.train import gan
@@ -2707,7 +2781,8 @@ def _dp_train_setup(torch, np, shape):
     batch = {"image_units": rng.randn(b, l, h, w, 2).astype(np.float32),
              "voxels": (rng.rand(b, l, h, w, 20) * 3
                         * (rng.rand(b, l, h, w, 20) < 0.2)).astype(np.float32)}
-    return args, cfg, V2ce3d(ModelConfig()), gan.make_discriminator(args.gan_3d_conv), batch
+    return (args, cfg, V2ce3d(ModelConfig(remat=remat)), gan.make_discriminator(args.gan_3d_conv),
+            batch)
 
 
 def _dp_sync(torch, dev):
@@ -2715,14 +2790,14 @@ def _dp_sync(torch, dev):
         torch.cuda.synchronize(dev)
 
 
-def _dp_train_step(torch, np, dev, mesh, shape):
+def _dp_train_step(torch, np, dev, mesh, shape, remat=False):
     """One train step at train.main's defaults on `dev`, seeded weights,
     alone (mesh None, the whole batch) or as a rank of `mesh` (its block).
     Returns the snapshot and the step's ms."""
     from v2ce_toolbox_tpu_torch.parallel.mesh import shard_batch
     from v2ce_toolbox_tpu_torch.train import state as tstate, step as tstep
 
-    args, cfg, model, disc, batch = _dp_train_setup(torch, np, shape)
+    args, cfg, model, disc, batch = _dp_train_setup(torch, np, shape, remat)
     st = tstate.create_train_state(model, cfg, disc=disc, seed=0, mesh=mesh)
     model.to(dev)
     disc.to(dev)
@@ -2739,8 +2814,9 @@ def dp_rank(mesh, clip, hw, out, ref_path, shape):
     """One rank of phase 16: `run` and `run_streaming` of the main path at
     `hw` (H, W) on the clip (the launch counters reset just before each and
     read just after), then, with `ref_path`, one train step on its block of
-    a global batch of `shape`, held against the one-rank step saved
-    there."""
+    a global batch of `shape`, and one with remat (the recompute runs the
+    global-batch BN all_reduce again, in the backward), each held against
+    the one-rank step without remat saved there."""
     import numpy as np
     import torch
 
@@ -2763,10 +2839,14 @@ def dp_rank(mesh, clip, hw, out, ref_path, shape):
         res[mode] = dict(r, launches=ops.launch_counts())
     if ref_path is not None:
         del pipe
-        snap, ms = _dp_train_step(torch, np, dev, mesh, shape)
         ref = torch.load(ref_path, weights_only=True)
-        res["train"] = {"ms": ms, "digest": _dp_digest(snap), "loss": snap["logs"]["loss"],
+        for key, remat in DP_STEPS.items():
+            snap, ms = _dp_train_step(torch, np, dev, mesh, shape, remat)
+            res[key] = {"ms": ms, "digest": _dp_digest(snap), "loss": snap["logs"]["loss"],
                         "errs": _dp_step_errors(snap, ref, ref["lr"], ref["disc_reach"])}
+            del snap
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
     return res
 
 
@@ -2813,9 +2893,9 @@ def data_parallel_phase(torch, np, counted, smi):
     a spawned process on its card: (a) a world of every visible GPU (NCCL)
     runs `run` and `run_streaming` on the 260x346 clip; (b) two ranks
     (NCCL on two GPUs, gloo on one) do the same and one train step at
-    train.main's defaults on a global batch of DP_TRAIN_SHAPE, held against
-    one rank's step (phase 14's tolerances) and across the ranks (one
-    state, bit for bit); (c) train.main over every visible GPU for 2 steps
+    train.main's defaults on a global batch of DP_TRAIN_SHAPE, without and
+    with remat, each held against one rank's step without remat (phase
+    14's tolerances) and across the ranks (one state, bit for bit); (c) train.main over every visible GPU for 2 steps
     and an eval on phase 14's packets."""
     import shutil
 
@@ -2876,21 +2956,24 @@ def data_parallel_phase(torch, np, counted, smi):
             "one card share it, and their times measure no scaling")
     ranks = _dp_world(torch, np, "(b) two ranks", two, clip, os.path.join(out, "b"), want,
                       counted, smi, ref_path)
-    digests = {res["train"]["digest"] for res in ranks}
-    for r, res in enumerate(ranks):
-        errs = res["train"]["errs"]
-        log(f"[dp] (b) rank {r}: one train step, {DP_TRAIN_SHAPE[0] // 2} items, "
-            f"{res['train']['ms']:.1f} ms (first step in the process), loss "
-            f"{res['train']['loss']:.6f}; against one rank: "
-            + ", ".join(f"{k} {v:.3e} (limit {DP_LIMITS[k]:g})" for k, v in errs.items())
-            + f" [{smi}]")
-        bad = [k for k, v in errs.items() if not v <= DP_LIMITS[k]]
-        if bad:
-            raise AssertionError(f"(b) rank {r}'s train step disagrees with one rank's: {bad}")
-    if len(digests) != 1:
-        raise AssertionError("(b) the ranks' parameters, moments or statistics differ")
-    log("[dp] (b) both ranks hold one state (parameters, BN statistics, SN vectors, Adam "
-        "moments, discriminator), bit for bit")
+    for key, remat in DP_STEPS.items():
+        what = "with remat" if remat else "without remat (the first in the process)"
+        for r, res in enumerate(ranks):
+            errs = res[key]["errs"]
+            log(f"[dp] (b) rank {r}: one train step {what}, {DP_TRAIN_SHAPE[0] // 2} items, "
+                f"{res[key]['ms']:.1f} ms, loss {res[key]['loss']:.6f}; against one rank "
+                "without remat: "
+                + ", ".join(f"{k} {v:.3e} (limit {DP_LIMITS[k]:g})" for k, v in errs.items())
+                + f" [{smi}]")
+            bad = [k for k, v in errs.items() if not v <= DP_LIMITS[k]]
+            if bad:
+                raise AssertionError(f"(b) rank {r}'s train step {what} disagrees with one "
+                                     f"rank's: {bad}")
+        if len({res[key]["digest"] for res in ranks}) != 1:
+            raise AssertionError(f"(b) {what}: the ranks' parameters, moments or statistics "
+                                 "differ")
+        log(f"[dp] (b) {what}: both ranks hold one state (parameters, BN statistics, SN "
+            "vectors, Adam moments, discriminator), bit for bit")
 
     # (c) train.main over every visible GPU
     if gpus < 2:
@@ -3078,6 +3161,186 @@ def stage_tools_phase(torch, np, counted, smi):
     return out
 
 
+def rewrites_phase(torch, np, counted, smi):
+    """Phase 19: the stage-1 rewrites (TF32 off, seeded `init_weights(0)`).
+    (a) Each variant of REWRITE_VARIANTS of the full-width V2ce3d on one
+    16-frame 260x346 window, counted, within STAGE1_REL_TOL of the base
+    model with the same weights ('cm' transposed back), ms a window
+    (median of 3); the K10 variant must launch K10. In bf16, REWRITE_BF16
+    within phase 10's max-error gate of the f32 base; K9 must launch in the
+    'pallas' one. (b) One train step at phase 14's TRAIN_CMP_SHAPE with
+    remat and without, within phase 14's limits of each other (logs, BN
+    statistics, SN vectors, Adam first moments, parameters); the
+    REWRITE_TRAIN step's first moments finite and within
+    TRAIN_GRAD_REL_TOL of the base step's; then each remat setting's peak
+    GiB and ms of a warm step at train.main's shape. (c) V2cePipeline
+    center on phase 4's clip with the pfold sub-pixel decoder and with the
+    base model, counted: sorted EVENT_DTYPE records, the event counts
+    within 0.5% of each other. (d) The nine probes of PROBES19 as phase 17
+    runs its own. Returns the phase's numbers."""
+    import copy
+
+    from v2ce_toolbox_tpu_torch.config import ModelConfig, PipelineConfig, TrainConfig
+    from v2ce_toolbox_tpu_torch.models import V2ce3d
+    from v2ce_toolbox_tpu_torch.pipeline import driver
+    from v2ce_toolbox_tpu_torch.train import gan, state as tstate, step as tstep
+    from v2ce_toolbox_tpu_torch.train.main import build_parser
+    from v2ce_toolbox_tpu_torch.utils.weights import init_weights
+
+    dev = torch.device(DEVICE)
+    t_phase = time.time()
+    marks = [("start", t_phase)]
+    out = {}
+
+    # (a) the variants at full width
+    base = V2ce3d(ModelConfig())
+    init_weights(base, 0)
+    weights = base.state_dict()
+    x = torch.from_numpy(np.random.RandomState(0).rand(1, 16, H, W, 2)
+                         .astype(np.float32)).to(dev)
+
+    def forward(kw, dtype=torch.float32):
+        m = V2ce3d(ModelConfig(compute_dtype=dtype, **kw))
+        m.load_state_dict(weights)
+        y, ms, _ = _timed_forward(torch, m.to(dev).eval(), x)
+        return (y.permute(0, 1, 3, 4, 2) if kw.get("out_layout") == "cm" else y), ms
+
+    y0, ms0 = forward({})
+    scale = float(y0.abs().max())
+    ms_window, rel = {"base": ms0}, {}
+    for name, kw in REWRITE_VARIANTS.items():
+        kern = ("fused_up_concat_conv",) if kw.get("subpixel_impl") == "pallas" else ()
+        y, ms_window[name] = counted(f"phase 19 {name}", kern, lambda kw=kw: forward(kw),
+                                     f"f32, {kw}")
+        rel[name] = float((y - y0).abs().max()) / scale
+        if y.shape != y0.shape or not torch.isfinite(y).all() or rel[name] > STAGE1_REL_TOL:
+            raise AssertionError(f"rewrite {name}: {rel[name]:.3e} from the base model "
+                                 f"(limit {STAGE1_REL_TOL:g}), shape {tuple(y.shape)}")
+    limit = 0.05 * scale + 1e-3
+    for name, (kw, kern) in REWRITE_BF16.items():
+        y, ms_window[f"bf16 {name}"] = counted(f"phase 19 bf16 {name}", kern,
+                                               lambda kw=kw: forward(kw, torch.bfloat16),
+                                               f"bf16, {kw}")
+        err = rel[f"bf16 {name}"] = float((y.float() - y0).abs().max())
+        if not (torch.isfinite(y).all() and err <= limit):
+            raise AssertionError(f"bf16 {name}: max error {err:.4e} against the f32 base "
+                                 f"(limit {limit:.4e})")
+    log(f"[rewrites] (a) full-width V2ce3d, (1, 16, {H}, {W}, 2), f32 base "
+        f"{ms0:.2f} ms/window; each f32 variant's ms/window and max error over the base's "
+        f"largest output (limit {STAGE1_REL_TOL:g}): "
+        + ", ".join(f"{k} {ms_window[k]:.2f} ms {rel[k]:.3e}" for k in REWRITE_VARIANTS)
+        + f"; bf16 ms/window and max error (limit 0.05 scale + 1e-3 = {limit:.4e}): "
+        + ", ".join(f"{k} {ms_window[k]:.2f} ms {rel[k]:.3e}" for k in rel
+                    if k.startswith("bf16")) + f" [{smi}]")
+    out.update(ms_window=ms_window, error=rel)
+    del base, x, y0, y
+    torch.cuda.empty_cache()
+    marks.append(("variants", time.time()))
+
+    # (b) remat, and the mixed variant's step
+    args = build_parser().parse_args([])
+    cfg = TrainConfig(loss="+".join(args.loss), lr=args.lr, weight_decay=args.weight_decay,
+                      lr_scheduler=args.lr_scheduler)
+    model0, disc0 = V2ce3d(ModelConfig()), gan.make_discriminator(args.gan_3d_conv)
+    tstate.create_train_state(model0, cfg, disc=disc0, seed=0)        # seeded weights
+    weights = model0.state_dict()
+
+    def one_step(kw, batch, steps=1):
+        m = V2ce3d(ModelConfig(**kw))
+        m.load_state_dict(weights)
+        m, d = m.to(dev), copy.deepcopy(disc0).to(dev)
+        st = tstate.create_train_state(m, cfg, disc=d, init=False)
+        step = tstep.make_train_step(m, cfg, disc=d, gan_k=args.gan_k)
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (st, logs), peak = peak_gib(torch, lambda: step(st, batch))
+            ms = (time.perf_counter() - t0) * 1e3
+        return st, {k: float(v) for k, v in logs.items()}, ms, peak
+
+    b, l, h, w = TRAIN_CMP_SHAPE
+    rng = np.random.RandomState(0)
+    batch = {"image_units": rng.randn(b, l, h, w, 2).astype(np.float32),
+             "voxels": (rng.rand(b, l, h, w, 20) * 3
+                        * (rng.rand(b, l, h, w, 20) < 0.2)).astype(np.float32)}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    ref = one_step({}, batch)
+    got = one_step(dict(remat=True), batch)
+    errs, apart, moved = _step_errors(ref[0], ref[1], got[0], got[1], cfg, args.gan_k)
+    bad = [k for k, v in errs.items() if not v <= TRAIN_LIMITS[k]]
+    log(f"[rewrites] (b) one train step, remat against no remat, batch {TRAIN_CMP_SHAPE}: "
+        + ", ".join(f"{k} {v:.3e} (limit {TRAIN_LIMITS[k]:g})" for k, v in errs.items())
+        + f"; generator elements moved apart by > 1e-3 lr: {apart} of {moved}; loss "
+        f"{got[1]['loss']:.6f} / {ref[1]['loss']:.6f}")
+    if bad or apart / moved > TRAIN_PARAM_SHARE:
+        raise AssertionError(f"remat's train step disagrees with the plain step: {bad}")
+    mixed = one_step(REWRITE_TRAIN, batch)
+    m1 = 0.0
+    for (name, p), q in zip(ref[0].model.named_parameters(), mixed[0].model.parameters()):
+        if p.requires_grad and TRAIN_DEAD_BIAS not in name:
+            g_ref, g_mix = ref[0].opt.state[p]["exp_avg"], mixed[0].opt.state[q]["exp_avg"]
+            if not torch.isfinite(g_mix).all():
+                raise AssertionError(f"{REWRITE_TRAIN}: non-finite gradient of {name}")
+            m1 = max(m1, _train_rel(g_mix, g_ref))
+    log(f"[rewrites] (b) one train step of {REWRITE_TRAIN} against the base step: generator "
+        f"Adam m1 {m1:.3e} (limit {TRAIN_GRAD_REL_TOL:g}), loss {mixed[1]['loss']:.6f} / "
+        f"{ref[1]['loss']:.6f}")
+    if not m1 <= TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"{REWRITE_TRAIN}: gradients {m1:.3e} from the base step's")
+    del ref, got, mixed, batch
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(0)
+    full = (TRAIN_BATCH, TRAIN_SEQ, H, W)
+    batch = {"image_units": torch.randn(*full, 2, generator=g, device=dev),
+             "voxels": torch.rand(*full, 20, generator=g, device=dev) * 3
+             * (torch.rand(*full, 20, generator=g, device=dev) < 0.2)}
+    step_ms, step_gib = {}, {}
+    for remat in (False, True):
+        _, logs, step_ms[remat], step_gib[remat] = one_step(dict(remat=remat), batch, steps=2)
+        torch.cuda.empty_cache()
+        if not all(np.isfinite(v) for v in logs.values()):
+            raise AssertionError(f"remat={remat}: non-finite logs at {full}")
+    log(f"[rewrites] (b) a warm train step at train.main's {full}: remat off "
+        f"{step_ms[False]:.1f} ms, peak {step_gib[False]:.2f} GiB; remat on "
+        f"{step_ms[True]:.1f} ms, peak {step_gib[True]:.2f} GiB [{smi}]")
+    out.update(step_ms={str(k): v for k, v in step_ms.items()},
+               step_peak_gib={str(k): v for k, v in step_gib.items()}, remat_errors=errs,
+               mixed_step_m1=m1)
+    del batch, model0, disc0
+    torch.cuda.empty_cache()
+    marks.append(("train steps", time.time()))
+
+    # (c) the pipeline with the sub-pixel decoder
+    clip, absent = os.path.join(OUT, "clip.mp4"), os.path.join(OUT, "absent.pt")
+    runs = {}
+    for label, mcfg in (("base", ModelConfig()), ("sp-pfold", ModelConfig(subpixel_decoder=True))):
+        pipe = driver.V2cePipeline(PipelineConfig(height=H, width=W, model=mcfg),
+                                   model_path=absent, device=DEVICE, seed=0)
+        run = lambda: pipe.run(input_video_path=clip, out_folder=OUT)  # noqa: E731
+        run()                                        # warm-up
+        runs[label] = counted(f"phase 19 V2cePipeline {label}", CENTER_PATH, run)
+        check_npz(runs[label], np, W, f"V2cePipeline {label}")
+    ratio = runs["sp-pfold"]["num_events"] / runs["base"]["num_events"]
+    log(f"[rewrites] (c) V2cePipeline center, ModelConfig(subpixel_decoder=True): "
+        f"{cli_line(runs['sp-pfold'])}; base: {cli_line(runs['base'])}; event count ratio "
+        f"{ratio:.6f} (within 0.005 of 1) [{smi}]")
+    if abs(ratio - 1) > 0.005:
+        raise AssertionError(f"the sub-pixel pipeline's event count is {ratio:.6f} of the base's")
+    out["pipeline"] = {k: {"frames_per_s": r["num_frames"] / r["wall_time_s"],
+                           "events": r["num_events"]} for k, r in runs.items()}
+    marks.append(("pipeline", time.time()))
+
+    # (d) the nine probes
+    _, out["probe_seconds"] = _run_probes(torch, np, counted, PROBES19)
+    marks.append(("probes", time.time()))
+    out["part_seconds"] = {k: marks[i + 1][1] - marks[i][1] for i, (k, _) in
+                           enumerate(marks[1:])}
+    out["seconds"] = time.time() - t_phase
+    log(f"[rewrites] phase 19 in {out['seconds']:.1f} s, by part {out['part_seconds']}; "
+        f"probes (s): {out['probe_seconds']} [{smi}]")
+    return out
+
+
 def main():
     import torch
 
@@ -3164,6 +3427,9 @@ def main():
     # 18. the stage tools and the binned v2 compaction, counted
     stage_tools = stage_tools_phase(torch, np, counted, smi)
 
+    # 19. the stage-1 rewrites, counted
+    rewrites = rewrites_phase(torch, np, counted, smi)
+
     # 6. stage 1 on the card against the CPU: the full-width model, seeded
     # weights, one 16-frame window of 64x96 (TF32 off; cuDNN and the CPU
     # sum the conv products in other orders)
@@ -3226,7 +3492,7 @@ def main():
     print(json.dumps({"kernels": kernels, "stage2_roofline": roofline_rates,
                       "probe_seconds": probe17_seconds,
                       "fused_window_profile": probe17["fused window profile"],
-                      "stage_tools": stage_tools, "card": smi}))
+                      "stage_tools": stage_tools, "rewrites": rewrites, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

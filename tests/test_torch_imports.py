@@ -47,8 +47,12 @@ MODULES = [
     "v2ce_toolbox_tpu_torch.ops.decoder",
     "v2ce_toolbox_tpu_torch.ops.gen",
     "v2ce_toolbox_tpu_torch.ops.ldati",
+    "v2ce_toolbox_tpu_torch.ops.research",
     "v2ce_toolbox_tpu_torch.ops.roofline",
     "v2ce_toolbox_tpu_torch.ops.samplers",
+    "v2ce_toolbox_tpu_torch.ops.subpixel",
+    "v2ce_toolbox_tpu_torch.ops.winograd",
+    "v2ce_toolbox_tpu_torch.ops.wpack",
     "v2ce_toolbox_tpu_torch.parallel",
     "v2ce_toolbox_tpu_torch.parallel.mesh",
     "v2ce_toolbox_tpu_torch.pipeline.driver",

@@ -1,7 +1,8 @@
 """Stage 1 of the port against the JAX V2ce3d: weight conversion both
 ways, the eval forward (f32, within rtol 1e-4 / atol 1e-5: the two
 frameworks sum the conv products in other orders), the pair
-normalization with the center crop, and the model's backend settings."""
+normalization with the center crop, and the model's backend settings
+(the rewrites against JAX are in `test_torch_rewrites.py`)."""
 
 import numpy as np
 import pytest
@@ -93,15 +94,35 @@ def test_normalize_pairs_and_center_crop_match():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("kw", [
+# conv_impl and subpixel_impl values the port once refused
+ONCE_REFUSED = [
     dict(conv_impl="fold"), dict(conv_impl="d2"), dict(conv_impl="d2s"),
     dict(conv_impl="wpack"), dict(conv_impl="ko:decoder"),
     dict(subpixel_decoder=True, subpixel_impl="split"),
     dict(subpixel_decoder=True, subpixel_impl="wfold"),
-    dict(subpixel_decoder=True)])                       # the default 'pfold'
-def test_unported_backends_raise_at_construction(kw):
-    with pytest.raises(NotImplementedError, match="Not ported"):
-        V2ce3d(ModelConfig(**SMALL, **kw))
+    dict(subpixel_decoder=True)]                        # the default 'pfold'
+
+
+def test_rewrite_backends_build_and_match_base(port_model):
+    """These backends were refused before the JAX package's rewrites were
+    ported; now each builds and gives the base model's output from its
+    weights, while 'ko:decoder', a knockout predicate the JAX package does
+    not know, raises its ValueError."""
+    x = torch.from_numpy(np.random.RandomState(2).randn(1, 2, 12, 20, 2).astype(np.float32))
+    with torch.no_grad():
+        want = port_model.eval()(x)
+    assert float(want.abs().max()) > 0
+    for kw in ONCE_REFUSED:
+        if kw.get("conv_impl") == "ko:decoder":
+            with pytest.raises(ValueError, match="unknown knockout predicate 'decoder'"):
+                V2ce3d(ModelConfig(**SMALL, **kw))
+            continue
+        model = V2ce3d(ModelConfig(**SMALL, **kw))
+        model.load_state_dict(port_model.state_dict())
+        with torch.no_grad():
+            got = model.eval()(x)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()),
+                                   msg=str(kw))
 
 
 @pytest.mark.parametrize("kw", [dict(conv_impl="cudnn"),

@@ -13,7 +13,9 @@ against the JAX package's mesh step and against one rank.
     moves up to 2 lr an update for the same reason; both Adams' moments
     (which, unlike Adam's step, hold the gradients' scale) within 1e-4 of
     each tensor's largest element, those biases aside; the two ranks hold
-    one state, bit for bit;
+    one state, bit for bit; the same world with remat (each block's
+    forward, global-batch BN all_reduce included, run again in the
+    backward) holds that state bit for bit;
   * BatchNorm3d's train mode on 2 ranks against 1 rank on the whole batch:
     outputs, running statistics, input and weight gradients;
   * `train.main` as two processes joined by `--coordinator`, and under
@@ -104,9 +106,10 @@ def run(tmp_path_factory):
     jtrain = jstep.make_train_step(jmodel, jcfg, disc=jdisc, gan_k=GAN_K,
                                    steps_per_epoch=STEPS_PER_EPOCH, mesh=mesh, donate=False)
     js1, jlogs = jtrain(js, batch)
-    port = _launch(tmp_path_factory.mktemp("world"), ranks.train_rank, 2, from_jax_variables(variables, **NB),
-                   discriminator_from_jax_params(dparams), batch, eval_batch, TINY, CFG, GAN_K,
-                   STEPS_PER_EPOCH)
+    port = [_launch(tmp_path_factory.mktemp("world"), ranks.train_rank, 2,
+                    from_jax_variables(variables, **NB), discriminator_from_jax_params(dparams),
+                    batch, eval_batch, dict(TINY, remat=remat), CFG, GAN_K, STEPS_PER_EPOCH)
+            for remat in (False, True)]
     return (jax.tree_util.tree_map(np.asarray, (js1, jlogs)),
             {k: float(v) for k, v in jeval.items()}, port)
 
@@ -114,8 +117,8 @@ def run(tmp_path_factory):
 def test_two_ranks_train_to_the_jax_mesh_state(run):
     """The logs and eval metrics; generator parameters, BN statistics and
     SN vectors, the discriminator, and both Adams' moments, after the step;
-    one state on both ranks."""
-    (js1, jlogs), jeval, port = run
+    one state on both ranks; with remat, the same state and logs."""
+    (js1, jlogs), jeval, (port, remat) = run
     for got, want in ((port[0]["logs"], jlogs), (port[0]["metrics"], jeval)):
         assert set(got) == set(want)
         for k, v in got.items():
@@ -156,10 +159,13 @@ def test_two_ranks_train_to_the_jax_mesh_state(run):
                 np.testing.assert_allclose(got, w, rtol=0, atol=RTOL * np.abs(w).max(),
                                            err_msg=(part, k))
     a, b = (r["state"] for r in port)
-    for part in ("model", "m1", "m2", "disc", "dm1", "dm2"):
-        assert a[part].keys() == b[part].keys()
-        for k in a[part]:
-            assert np.array_equal(a[part][k], b[part][k]), (part, k)
+    for c in (b, remat[0]["state"], remat[1]["state"]):
+        for part in ("model", "m1", "m2", "disc", "dm1", "dm2"):
+            assert a[part].keys() == c[part].keys()
+            for k in a[part]:
+                assert np.array_equal(a[part][k], c[part][k]), (part, k)
+    for k in ("logs", "metrics"):
+        assert remat[0][k] == remat[1][k] == port[0][k], k
 
 
 def test_batchnorm_over_the_global_batch(tmp_path):

@@ -2,8 +2,8 @@
 with `probes_stage1` and `probes_stage2`) on the CPU at tiny shapes: each
 probe runs through its kernels' plain twins, prints the JAX probe's lines
 and returns finite measurements; `wino_ablate` prints FAILED only for
-'noinv', as the JAX probe does, and the JAX options the port does not carry
-print "not ported" or "not applicable". The probes' own re-statements of a
+'noinv', as the JAX probe does, and the JAX option the port does not carry
+prints "not applicable". The probes' own re-statements of a
 production step are held against that step: the unfused generation chains
 against the JAX package's `relocate_counts` / `slope_params`, the fused
 wire path's phases against `driver._flatten_rows`, and `bf16_fidelity`'s
@@ -52,8 +52,8 @@ STAGE2_KW = {
 MODEL_LABELS = {"model": "model", "model_pad": "model_pad384", "model_bf16": "model_bf16",
                 "model_bf16_pad": "model_bf16_pad384", "model_pallas_bf16": "model_pallas_bf16",
                 "model_pallas": "model_pallas_f32",
-                "model_subpixel": "model_subpixel[pallas, last 2]"}
-NOT_PORTED = {"model[ko:all,no_sn,no_bn]", "fused_dec dec3 fused-k64"}
+                "model_subpixel": "model_subpixel"}
+NOT_PORTED = {"fused_dec dec3 fused-k64"}
 
 
 def _finite(res, allow_none=()):
@@ -162,9 +162,9 @@ def test_compact_algo_prints_both_algos(capsys):
 
 def test_quad_prints_each_layer_and_dtype(capsys):
     """quad, then the stage-1 conv probes (conv_iso, pallas_conv, roofline,
-    fused_dec): one line per layer and dtype, finite times; K9's twin
-    equals the f32 conv it is held to; fused_dec's `fused-k64` is not
-    applicable."""
+    fused_dec, wpack, conv2d_decomp, d2, boundary, winograd): one line per
+    layer and dtype, finite times; K9's twin equals the f32 conv it is held
+    to; fused_dec's `fused-k64` is not applicable."""
     res = perf_probe.probe_quad(CPU, layers=[("tiny", 9, 13, 16, 8)], frames=3)
     lines = _lines(capsys)
     assert set(res) == {("tiny", "bf16"), ("tiny", "f32")}
@@ -193,6 +193,29 @@ def test_quad_prints_each_layer_and_dtype(capsys):
                                                       "fused-k64")] \
         + [f"fused_dec dec2 {v}" for v in ("direct", "up+concat", "fused")]
     _finite(res, allow_none={("dec3", "fused-k64")})
+    # the rewrites' conv probes: width packing, the 2D decomposition, the
+    # depth fold, the boundary layers (each parity held in the probe) and
+    # Winograd F(2x2,3x3)
+    res, heads = _run("wpack", capsys, frames=2, layers=[("head", 9, 13, 2, 8, (1, 1, 1)),
+                                                         ("s2", 9, 13, 6, 8, (1, 2, 2))])
+    assert heads == [f"wpack {n} {d}" for n in ("head", "s2") for d in ("f32", "bf16")]
+    _finite(res)
+    res, heads = _run("conv2d_decomp", capsys, frames=3, layers=[("s2", 9, 13, 6, 8, 2)])
+    assert heads == ["c2d s2 f32", "c2d s2 bf16"]
+    _finite(res)
+    res, heads = _run("d2", capsys, frames=3, layers=[("c", 9, 13, 16, 8)])
+    assert heads == ["d2 c xla bf16", "d2 c d2 bf16"]
+    _finite(res)
+    res, heads = _run("boundary", capsys, h=10, w=14, frames=2)
+    assert heads == [f"boundary {n}" for n in ("pred_cur", "pred_cm")] + ["  pred parity"] \
+        + [f"boundary {n}" for n in ("head_cur", "head_cm", "head_cm_stay")] \
+        + ["  head parity"] + [f"boundary {n}" for n in ("enc0_cur", "enc0_fold")] \
+        + ["  enc0 parity"] + [f"boundary {n}" for n in ("dec3_cur", "dec3_split")] \
+        + ["  dec3 parity"]
+    _finite(res)
+    res, heads = _run("winograd", capsys, shapes=[("tiny", (1, 3, 9, 13, 6), 4)])
+    assert heads == [f"tiny {v}" for v in ("direct_bf16", "wino_bf16", "wino_f32")]
+    _finite(res)
 
 
 def test_wino_pallas_checks_then_times(capsys):
@@ -242,8 +265,10 @@ def test_wino_pallas_checks_then_times(capsys):
 
 def test_wino_ablate_fails_only_noinv(capsys):
     """wino_ablate prints FAILED for 'noinv' alone; the stage-1 model
-    probes print no FAILED: model_overhead's knock-out variant prints as
-    not ported, every other line a finite time."""
+    probes print no FAILED, every line a finite time: the model in each
+    configuration, model_overhead with its knock-out variant, and the
+    in-model A/Bs of the rewrites (model_variants, subpixel_variants,
+    model_d2, model_knockout), one set of weights a probe."""
     res = perf_probe.probe_wino_ablate(CPU, shape=(1, 4, 9, 13, 16), cout=8)
     lines = _lines(capsys)
     failed = [ln for ln in lines if "FAILED" in ln]
@@ -266,13 +291,26 @@ def test_wino_ablate_fails_only_noinv(capsys):
     assert [ln.split(": ")[0] for ln in lines] == [
         "model[bf16]", "model[no_sn]", "model[no_bn]", "model[no_sn_no_bn]",
         "model[ko:all,no_sn,no_bn]"]
-    assert lines[-1].startswith("model[ko:all,no_sn,no_bn]: not ported (conv_impl='ko:all'")
     assert not any("FAILED" in ln for ln in lines)
-    _finite(res, allow_none=NOT_PORTED)
+    _finite(res)
+    variants = {
+        "model_variants": ("model_variant", ["base", "split", "cm", "fold", "split+cm",
+                                             "split+cm+fold"]),
+        "subpixel_variants": ("subpixel_variant", [
+            "base", "sp-pfold", "sp-wfold", "sp-split", "sp-pfold-last1", "sp-pfold-last2",
+            "sp-wfold-last2", "sp-pallas-last2", "sp-pallas-last1"]),
+        "model_d2": ("model_d2", ["base", "d2", "d2s"]),
+        "model_knockout": ("model", ["xla", "ko:all", "ko:head", "ko:strided", "ko:small",
+                                     "ko:big"])}
+    for name, (label, names) in variants.items():
+        res, heads = _run(name, capsys, **SMALL)
+        assert heads == [f"{label}[{v}]" for v in names], heads
+        assert list(res) == names
+        _finite(res)
 
 
 def test_cli_rejects_an_unknown_probe():
-    """An unknown name is refused; the registry holds the 32 portable
+    """An unknown name is refused; the registry holds the 41 portable
     probes under their JAX names; with `--device cuda` (the default) and no
     card every probe is refused before it runs."""
     with pytest.raises(SystemExit):
@@ -282,8 +320,9 @@ def test_cli_rejects_an_unknown_probe():
         "gen_compact", "fused_pipeline", "fused_phases", "bf16_fidelity", "roofline",
         "model", "model_pad", "model_bf16", "model_bf16_pad", "conv_iso", "pallas_conv",
         "model_pallas_bf16", "model_pallas", "model_subpixel", "pallas_model", "fused_dec",
-        "batch_scaling", "model_overhead"]
-    assert len(perf_probe.PROBES) == 32
+        "batch_scaling", "model_overhead", "wpack", "conv2d_decomp", "d2", "model_d2",
+        "model_knockout", "boundary", "model_variants", "subpixel_variants", "winograd"]
+    assert len(perf_probe.PROBES) == 41
     assert set(probes_stage2.KERNELS) | set(probes_stage1.KERNELS) \
         == set(perf_probe.PROBES) - set(perf_probe.KERNEL_PROBES)
     if not torch.cuda.is_available():

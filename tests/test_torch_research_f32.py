@@ -74,7 +74,7 @@ def test_block_without_fused_projection_matches_jax():
         sd[f"{t}.weight"], sd[f"{t}.bias"] = p[j]["bn"]["scale"], p[j]["bn"]["bias"]
         sd[f"{t}.running_mean"], sd[f"{t}.running_var"] = s[j]["bn"]["mean"], s[j]["bn"]["var"]
         sd[f"{t}.num_batches_tracked"] = np.zeros((), np.int64)
-    block = DecoderResidualBlock3D(24, 64, (1, 1, 1), "BN", True)
+    block = DecoderResidualBlock3D(24, 64, (1, 1, 1), "BN", True, subpixel_impl="pallas")
     block.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in sd.items()})
     with torch.no_grad():
         got = block.eval()(torch.from_numpy(coarse).permute(0, 4, 1, 2, 3),

@@ -1,9 +1,11 @@
 """Configuration dataclasses for the V2CE pipeline and its training.
 
-Same field names and defaults as `v2ce_toolbox_tpu/config.py`. Of the
-stage-1 model's backend knobs the port runs conv_impl 'xla' (cuDNN) and
-'pallas' (the K9 kernel), and the sub-pixel decoder's 'pallas' form (the
-K10 kernel); the TPU-only XLA rewrites, layouts and remat are not ported.
+Same field names and defaults as `v2ce_toolbox_tpu/config.py`. The
+stage-1 model's backend knobs are all ported: conv_impl 'xla' (cuDNN),
+'pallas' (the K9 kernel) and the exact rewrites 'fold', 'd2', 'd2s',
+'wpack' and the knockout 'ko:<pred>' (`ops/research.py`); the sub-pixel
+decoder's 'split', 'wfold' and 'pfold' forms (`ops/subpixel.py`) and its
+'pallas' form (the K10 kernel); decoder_split, out_layout and remat.
 """
 
 from __future__ import annotations
@@ -24,13 +26,12 @@ SEQ_LEN = 16                # frames per model window
 FRAME_MEAN = 0.153
 FRAME_STD = 0.165
 
-CONV_IMPLS = ("xla", "pallas")
-UNPORTED_CONV_IMPLS = ("fold", "d2", "d2s", "wpack")
-UNPORTED_SUBPIXEL_IMPLS = ("split", "wfold", "pfold")
-UNPORTED = ("the TPU-only XLA rewrites fold, d2, d2s, wpack and ko:* of "
-            "conv_impl, and split, wfold and pfold of subpixel_impl, stay in the "
-            "JAX package (ROADMAP, 'Not ported'); the port runs conv_impl 'xla' or "
-            "'pallas' and subpixel_impl 'pallas'")
+CONV_IMPLS = ("xla", "pallas", "fold", "d2", "d2s", "wpack")
+# conv_impl 'ko:<pred>': the 3x3x3 convs the predicate picks run as their
+# centre tap (`ops/research.knockout`)
+KNOCKOUT_PREDICATES = ("all", "big", "head", "small", "strided")
+SUBPIXEL_IMPLS = ("split", "wfold", "pfold", "pallas")
+OUT_LAYOUTS = ("cl", "cm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,32 +50,42 @@ class ModelConfig:
     # conv inputs are cast to compute_dtype, conv outputs are f32, and the
     # BatchNorm outputs (the activations between layers) are compute_dtype
     compute_dtype: torch.dtype = torch.float32
-    # 'pallas' routes every 3x3x3 stride-1 pad-1 conv with cin >= 16 to
-    # the K9 kernel (ops/conv3d.py); 'xla' keeps every conv on F.conv3d
+    # 'xla' keeps every conv on F.conv3d; 'pallas' routes every 3x3x3
+    # stride-1 pad-1 conv with cin >= 16 to the K9 kernel (ops/conv3d.py);
+    # 'fold', 'd2', 'd2s', 'wpack' and 'ko:<pred>' are the exact rewrites
+    # and the knockout of ops/research.dispatch_conv
     conv_impl: str = "xla"
     # decoder conv1 + projection over concat(nearest_up2(x), skip) on the
-    # coarse grid; only subpixel_impl 'pallas' (the K10 kernel,
-    # ops/decoder.py) is ported
+    # coarse grid: subpixel_impl 'split', 'wfold' or 'pfold'
+    # (ops/subpixel.py), or 'pallas' (the K10 kernel, ops/decoder.py)
     subpixel_decoder: bool = False
     subpixel_impl: str = "pfold"
     subpixel_blocks: int = -1     # the last N decoder blocks; -1 = all
+    # decoder blocks take (upsampled, skip) as two tensors and slice the
+    # conv1 and projection kernels across them: no concat is built
+    decoder_split: bool = False
+    # 'cm' returns the prediction channel-major, (B, L, 20, H, W)
+    out_layout: str = "cl"
+    # recompute the encoder, residual and decoder blocks' activations in
+    # the backward pass (torch.utils.checkpoint): training memory
+    remat: bool = False
 
     def check_backends(self) -> None:
-        """Raise on a backend the port does not run: NotImplementedError
-        for the JAX package's TPU-only rewrites, ValueError for names it
-        does not know either."""
+        """Raise ValueError on a backend name the JAX package does not know
+        (it raises on the conv_impl and the knockout predicate at the first
+        conv that reads them); an out_layout other than 'cl' and 'cm' too,
+        which the JAX model takes as 'cl'."""
         ci = self.conv_impl
-        if ci in UNPORTED_CONV_IMPLS or ci.startswith("ko:"):
-            raise NotImplementedError(
-                f"conv_impl={ci!r} is not ported: {UNPORTED}")
-        if ci not in CONV_IMPLS:
+        if ci.startswith("ko:"):
+            if ci[3:] not in KNOCKOUT_PREDICATES:
+                raise ValueError(f"unknown knockout predicate {ci[3:]!r}; "
+                                 f"valid: {sorted(KNOCKOUT_PREDICATES)}")
+        elif ci not in CONV_IMPLS:
             raise ValueError(f"unknown conv_impl {ci!r}")
-        if self.subpixel_decoder:
-            if self.subpixel_impl in UNPORTED_SUBPIXEL_IMPLS:
-                raise NotImplementedError(
-                    f"subpixel_impl={self.subpixel_impl!r} is not ported: {UNPORTED}")
-            if self.subpixel_impl != "pallas":
-                raise ValueError(f"unknown subpixel_impl {self.subpixel_impl!r}")
+        if self.subpixel_decoder and self.subpixel_impl not in SUBPIXEL_IMPLS:
+            raise ValueError(f"unknown subpixel_impl {self.subpixel_impl!r}")
+        if self.out_layout not in OUT_LAYOUTS:
+            raise ValueError(f"unknown out_layout {self.out_layout!r}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,7 +8,9 @@ keys `v2ce_toolbox_tpu/utils/torch_compat.py` converts), so a released
   ResidualBlock3D:  conv1, bn1, conv2, bn2, downsample.0 (1x1x1 conv),
                     downsample.1 (BN); with spectral norm conv1/conv2 are
                     SNConv3d: module.{weight_bar,weight_u,weight_v}
-  DecoderResidualBlock3D: the same names
+  SplitInputResidualBlock3D, DecoderResidualBlock3D: the same names on
+                    the concat input, so one state_dict drives every
+                    decoder form
 
 Precision follows the JAX package: every conv casts its input and kernel
 to `compute_dtype` and returns f32 (the bias is added in f32), and each
@@ -24,6 +26,8 @@ the JAX package's `Conv`, `SNConv` and `BatchNorm` do: `Conv2d`,
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -32,11 +36,14 @@ from torch import nn
 
 from v2ce_toolbox_tpu_torch.ops.conv3d import conv3d_3x3x3
 from v2ce_toolbox_tpu_torch.ops.decoder import fused_up_concat_conv
+from v2ce_toolbox_tpu_torch.ops.research import dispatch_conv, pallas_applies
+from v2ce_toolbox_tpu_torch.ops.subpixel import (
+    conv1x1_on_nearest_up2,
+    conv3d_on_nearest_up2,
+    conv3d_on_nearest_up2_pfold,
+    conv3d_on_nearest_up2_wfold,
+)
 from v2ce_toolbox_tpu_torch.parallel.mesh import all_reduce_with_grad
-
-
-def _triple(v) -> Tuple[int, int, int]:
-    return tuple(v) if isinstance(v, (tuple, list)) else (v, v, v)
 
 
 def _apply_conv(x: torch.Tensor, w: torch.Tensor, stride, padding,
@@ -45,22 +52,52 @@ def _apply_conv(x: torch.Tensor, w: torch.Tensor, stride, padding,
     (Co, C, kh, kw) one), both cast to compute_dtype, f32 out, no bias.
     conv_impl 'pallas' sends the 3D convs that the JAX package's guard
     sends to its Pallas kernel (3x3x3, stride 1, padding 1, cin >= 16;
-    `ops/research.py:115-119`) to K9, on a channels-last view; every other
-    conv goes to F.conv3d (F.conv2d). These return compute_dtype, so a
-    bf16 conv there rounds its f32 sums to bf16 before the cast back,
-    where XLA returns them in f32."""
+    `ops/research.py:115-119`) to K9, on a channels-last view; 'xla' and
+    every conv outside that guard go to F.conv3d (F.conv2d); any other
+    conv_impl goes to `ops/research.dispatch_conv`, as in the JAX package.
+    The torch convs return compute_dtype, so a bf16 conv there rounds its
+    f32 sums to bf16 before the cast back, where XLA returns them in f32."""
     if w.dim() == 4:
         return F.conv2d(x.to(compute_dtype), w.to(compute_dtype), None, stride,
                         padding).float()
-    if (conv_impl == "pallas" and tuple(w.shape[2:]) == (3, 3, 3)
-            and _triple(stride) == (1, 1, 1) and _triple(padding) == (1, 1, 1)
-            and x.shape[1] >= 16):
+    if conv_impl == "pallas" and pallas_applies(x, w, stride, padding):
         xc = x.to(compute_dtype).contiguous(memory_format=torch.channels_last_3d)
         y = conv3d_3x3x3(xc.permute(0, 2, 3, 4, 1),
                          w.to(compute_dtype).permute(2, 3, 4, 1, 0), out_dtype=torch.float32)
         return y.permute(0, 4, 1, 2, 3)
+    if conv_impl not in ("xla", "pallas"):
+        return dispatch_conv(x, w, stride, padding, compute_dtype, conv_impl)
     return F.conv3d(x.to(compute_dtype), w.to(compute_dtype), None, stride,
                     padding).float()
+
+
+# whether this thread is recomputing a checkpointed block: the recompute
+# runs in the thread that unpacks the saved tensors (the autograd engine's
+# device thread on the card), and so do the BN and SN forwards inside it
+_remat = threading.local()
+
+
+def _recomputing_now() -> bool:
+    return getattr(_remat, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _recomputing():
+    _remat.depth = getattr(_remat, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _remat.depth -= 1
+
+
+def remat_contexts():
+    """`context_fn` of `torch.utils.checkpoint.checkpoint` for the model's
+    blocks: during the recompute of a checkpointed forward, BatchNorm
+    leaves its running statistics alone and spectral norm iterates from
+    the vector the forward started from, so a step with remat updates the
+    state once and recomputes the forward's own weights, as flax's
+    `nn.remat` does."""
+    return contextlib.nullcontext(), _recomputing()
 
 
 class _FlaxTrainBN:
@@ -93,14 +130,18 @@ class _FlaxTrainBN:
             sums = all_reduce_with_grad(torch.cat([x.sum(dims), (x * x).sum(dims)]))
             mean, mean2 = (sums / n).chunk(2)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
+        if not _recomputing_now():
+            self._update_running(mean, var)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked.add_(1)
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 class BatchNorm3d(_FlaxTrainBN, nn.BatchNorm3d):
@@ -158,7 +199,9 @@ class SNConv3d(nn.Module):
     mode; in eval nothing mutates. Gradients flow through the power
     iteration (u and v are functions of weight_bar), as in the JAX
     package's SNConv; the iteration starts from a copy of the stored u, so
-    writing the new vectors back leaves the tensors autograd saved intact."""
+    writing the new vectors back leaves the tensors autograd saved intact;
+    a training forward keeps that copy, from which the recompute of a
+    checkpointed block (`remat_contexts`) starts again."""
 
     ndim = 3
 
@@ -175,10 +218,13 @@ class SNConv3d(nn.Module):
     def weight(self) -> torch.Tensor:
         m = self.module
         w2d = m.weight_bar.reshape(m.weight_bar.shape[0], -1)
-        v = _l2normalize(w2d.t() @ m.weight_u.clone())
+        recompute = self.training and _recomputing_now()
+        u0 = self._u_start if recompute else m.weight_u.clone()
+        v = _l2normalize(w2d.t() @ u0)
         u = _l2normalize(w2d @ v)
         sigma = u @ (w2d @ v)
-        if self.training:
+        if self.training and not recompute:
+            self._u_start = u0
             with torch.no_grad():
                 m.weight_u.copy_(u)
                 m.weight_v.copy_(v)
@@ -303,16 +349,55 @@ class ResidualBlock3D(nn.Module):
         return self._tail(self.conv1(x), self.downsample[0](x))
 
 
-class DecoderResidualBlock3D(ResidualBlock3D):
-    """ResidualBlock3D over concat(nearest_up2(coarse), skip) with conv1
-    (and, where 4*Co <= 128, the projection) computed by K10 on the coarse
-    grid, without the upsampled or the concatenated tensor: the JAX
-    package's `DecoderResidualBlock3D` with subpixel_impl='pallas'
-    (`v2ce_toolbox_tpu/models/layers.py:440-533`). Same parameters and
-    names as ResidualBlock3D on the concat input. K10 returns
-    compute_dtype; without the fused projection (Co = 64) the residual is
-    the coarse 1x1 conv, upsampled (a 1x1 conv commutes with nearest
-    upsampling), plus the skip's 1x1 conv."""
+class SplitInputResidualBlock3D(ResidualBlock3D):
+    """ResidualBlock3D over concat(up, skip) without the concat (JAX
+    `layers.py:315-376`): conv1 and the projection distribute over the
+    channel concat, so each runs as two convs, its kernel sliced at up's
+    channel count, summed. Same parameters and names as ResidualBlock3D
+    on the concat input."""
+
+    def _conv1(self):
+        """conv1's kernel (spectrally normalised, the SN step taken as its
+        forward takes it) and bias."""
+        c = self.conv1
+        if isinstance(c, SNConv3d):
+            return c.weight(), c.module.bias
+        return c.weight, c.bias
+
+    def forward(self, up: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        cd, ci, cu = self.compute_dtype, self.conv1.conv_impl, up.shape[1]
+        k1, bias1 = self._conv1()
+        out = _apply_conv(up, k1[:, :cu], 1, 1, cd, ci) + _apply_conv(skip, k1[:, cu:], 1, 1, cd, ci)
+        if bias1 is not None:
+            out = out + _bias(bias1)
+        kd, bias_d = self.downsample[0].weight, self.downsample[0].bias
+        residual = (_apply_conv(up, kd[:, :cu], 1, 0, cd, "xla")
+                    + _apply_conv(skip, kd[:, cu:], 1, 0, cd, "xla") + _bias(bias_d))
+        return self._tail(out, residual)
+
+
+# the sub-pixel decoder's XLA forms (ops/subpixel.py)
+SUBPIXEL_CONVS = {"split": conv3d_on_nearest_up2, "wfold": conv3d_on_nearest_up2_wfold,
+                  "pfold": conv3d_on_nearest_up2_pfold}
+
+
+class DecoderResidualBlock3D(SplitInputResidualBlock3D):
+    """ResidualBlock3D over concat(nearest_up2(coarse), skip), computed
+    without the upsampled or the concatenated tensor: the JAX package's
+    `DecoderResidualBlock3D` (`v2ce_toolbox_tpu/models/layers.py:440-533`).
+    Same parameters and names as ResidualBlock3D on the concat input.
+
+    subpixel_impl 'split', 'wfold' or 'pfold': conv1's upsampled half by
+    that fold on the coarse grid (`ops/subpixel.py`), its skip half by
+    `_apply_conv`, the projection's upsampled half by the coarse 1x1 conv,
+    repeated (the default, as in the JAX block, is 'split'). 'pallas':
+    conv1 (and, where 4*Co <= 128, the projection) by K10 on the coarse
+    grid; K10 returns compute_dtype, and without the fused projection (Co =
+    64) the residual is the coarse 1x1 conv, upsampled, plus the skip's."""
+
+    def __init__(self, *args, subpixel_impl: str = "split", **kwargs):
+        super().__init__(*args, **kwargs)
+        self.subpixel_impl = subpixel_impl
 
     def forward(self, coarse: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         """coarse (B, Cu, L, hc, wc) and skip (B, Cs, L, hf, wf), hf in
@@ -320,11 +405,20 @@ class DecoderResidualBlock3D(ResidualBlock3D):
         th, tw = skip.shape[-2:]
         cd = self.compute_dtype
         cu = coarse.shape[1]
-        conv1, proj = self.conv1, self.downsample[0]
-        k1 = (conv1.weight() if isinstance(conv1, SNConv3d) else conv1.weight).to(cd)
-        bias1 = conv1.module.bias if isinstance(conv1, SNConv3d) else conv1.bias
+        proj = self.downsample[0]
+        k1, bias1 = self._conv1()
+        k1 = k1.to(cd)
         kd = proj.weight.to(cd)
         co = k1.shape[0]
+        if self.subpixel_impl != "pallas":
+            conv_up = SUBPIXEL_CONVS[self.subpixel_impl]
+            out = conv_up(coarse.to(cd), k1[:, :cu], (th, tw)) + _apply_conv(
+                skip, k1[:, cu:], 1, 1, cd, self.conv1.conv_impl)
+            if bias1 is not None:
+                out = out + _bias(bias1)
+            residual = (conv1x1_on_nearest_up2(coarse.to(cd), kd[:, :cu], (th, tw))
+                        + _apply_conv(skip, kd[:, cu:], 1, 0, cd, "xla") + _bias(proj.bias))
+            return self._tail(out, residual)
 
         def cl(t):          # NCDHW -> NDHWC in compute_dtype
             return t.to(cd).permute(0, 2, 3, 4, 1)

@@ -1,6 +1,6 @@
 """V2ce3d — the stage-1 model: (B, L, H, W, 2) consecutive-frame pairs ->
 (B, L, H, W, 20) f32 event-count voxels (channel p*10 + bin, p = 0 is ON),
-in any compute_dtype."""
+in any compute_dtype; (B, L, 20, H, W) with out_layout 'cm'."""
 
 from __future__ import annotations
 
@@ -30,9 +30,14 @@ class V2ce3d(nn.Module):
             conv_impl=config.conv_impl,
             subpixel_decoder=config.subpixel_decoder,
             subpixel_blocks=config.subpixel_blocks,
+            subpixel_impl=config.subpixel_impl,
+            decoder_split=config.decoder_split,
+            out_layout=config.out_layout,
+            remat=config.remat,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, L, H, W, 2) -> (B, L, H, W, 20); NCDHW inside."""
+        """(B, L, H, W, 2) -> (B, L, H, W, 20), or (B, L, 20, H, W) with
+        out_layout 'cm'; NCDHW inside."""
         y = self.UNet(x.permute(0, 4, 1, 2, 3).contiguous())
-        return y.permute(0, 2, 3, 4, 1)
+        return y if self.config.out_layout == "cm" else y.permute(0, 2, 3, 4, 1)

@@ -431,6 +431,12 @@ class V2cePipeline:
         device replaces `device`)."""
         if config.infer_type not in ("center", "pano"):
             raise ValueError(f"invalid infer_type {config.infer_type!r}")
+        if config.model.out_layout != "cl":
+            # the window merge, the sampler's channel-major reshape and the
+            # renders take the channels-last prediction
+            raise ValueError(
+                "V2cePipeline requires ModelConfig.out_layout='cl'; "
+                f"got {config.model.out_layout!r} (probe-only option)")
         self.config = config
         if config.infer_type == "center":
             self._check_sampler(config.width)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Probe harness of the port: the 32 portable probes of the JAX package's
+"""Probe harness of the port: the 41 portable probes of the JAX package's
 `tools/perf_probe.py`, at their shapes and with their print lines, on one
 card.
 
@@ -15,8 +15,10 @@ sampler_strategies, gen_compact, fused_pipeline, fused_phases,
 bf16_fidelity, roofline) and the stage-1 splits of `probes_stage1`
 (model, model_pad, model_bf16, model_bf16_pad, conv_iso, pallas_conv,
 model_pallas_bf16, model_pallas, model_subpixel, pallas_model, fused_dec,
-batch_scaling, model_overhead). The `devices:` line states the TF32
-settings every f32 number ran under.
+batch_scaling, model_overhead, and the rewrites' wpack, conv2d_decomp, d2,
+model_d2, model_knockout, boundary, model_variants, subpixel_variants,
+winograd). The `devices:` line states the TF32 settings every f32 number
+ran under.
 
 `timed_loop` is the median of warm CUDA-event timings of calls whose
 outputs are all reduced into a checksum that is fetched and must be finite

@@ -58,16 +58,19 @@ def _maybe_encoder_loss(loss_names, encoder_loss_fn):
 
 
 def check_trainable(model) -> None:
-    """K9 and K10 (conv_impl / subpixel_impl 'pallas') are forward-only."""
+    """K9 and K10 (conv_impl / subpixel_impl 'pallas') are forward-only; the
+    other backends (the sub-pixel forms 'split', 'wfold' and 'pfold',
+    decoder_split, 'fold', 'd2', 'd2s', 'wpack', 'ko:*') and remat are
+    plain torch and train. The messages are the JAX step's."""
     mcfg = getattr(model, "config", None)
     if getattr(mcfg, "conv_impl", "xla") == "pallas":
         raise ValueError(
-            "conv_impl='pallas' is forward-only (no backward kernel); "
+            "conv_impl='pallas' is forward-only (no custom VJP); "
             "use conv_impl='xla' for training")
     if getattr(mcfg, "subpixel_decoder", False) and getattr(mcfg, "subpixel_impl", "") == "pallas":
         raise ValueError(
             "subpixel_impl='pallas' (fused decoder kernel) is forward-only; "
-            "use subpixel_decoder=False for training")
+            "use an XLA subpixel_impl or subpixel_decoder=False for training")
 
 
 def make_train_step(model, cfg: TrainConfig, *, disc=None, gan_k: int = 3,
